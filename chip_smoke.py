@@ -1,0 +1,374 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``zstd_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (no phase's error is caught):
+
+1. Card: name and power limit (``nvidia-smi``); build every CUDA kernel
+   from ``zstd_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel)
+   and the host C routines.
+2. Corpus: the bench's 24 MB Silesia-like corpus, compressed by the
+   system libzstd at level 3 with checksums, one frame per 4 MiB; and
+   its first 8 MiB at level 19 (treeless and repeat tables, long
+   offsets, the wide retry).
+3. Each kernel against its plain PyTorch form on the card, at the inputs
+   the main path gives it for the first frame group of the level-3
+   corpus: literals (dense bytes + ok flags), sequences narrow and wide
+   (whole planes + ok flags, pre-retry), compaction (dense words).
+   Tolerance 0: the codec is integer-exact.  Kernel times are the median
+   of several launches between CUDA events; the plain form is timed once.
+4. The main path: ``DeviceEngine().decompress`` of the level-3 corpus
+   with every launch count set to 0 just before and read just after;
+   the output must equal the corpus, with no oracle fallback, and every
+   kernel must have launched.  Then the wall time, median of 3.
+5. The same for the level-19 mix, with its retry count.
+6. The wide retry: a block whose first sequence overflows the narrow
+   packing decodes exactly through the sequences kernel in wide mode.
+7. Device time by kernel and the device's idle share over one
+   main-path decode (``torch.profiler``).
+
+The line before the last is the ``kernels`` JSON object; the last line
+is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+result, without a CUDA card or outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor peak, the table's float32 rate
+# Integer operations per decoded unit, counted from the kernels' inner
+# loops (csrc/literals.cu per symbol, csrc/sequences.cu per sequence).
+LIT_OPS_PER_SYMBOL = 40
+SEQ_OPS_PER_SEQUENCE = 150
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, what) -> None:
+    """Fail the run (a check that survives ``python -O``)."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median device milliseconds of ``fn`` over ``reps`` runs (one warm-up)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def timed_once(fn):
+    """(result, device milliseconds) of one run of ``fn``."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def max_abs_err(pairs) -> int:
+    """Largest |kernel - plain| over integer tensor pairs (shapes must match)."""
+    err = 0
+    for k, p in pairs:
+        check(k.shape == p.shape, (k.shape, p.shape))
+        if k.numel():
+            err = max(err, int((k.long() - p.long()).abs().max()))
+    return err
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_phase(comp: bytes, dev) -> dict:
+    """Phase 3: every kernel against its plain form at one group's inputs."""
+    import numpy as np
+    import torch
+
+    from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
+    from zstd_tpu_torch.kernels import compact, literals, sequences
+    from zstd_tpu_torch.kernels.bitbuf import to_i32
+    from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
+    from zstd_tpu_torch.runtime import engine
+
+    frames = next(engine.frame_groups(comp))
+    words = input_words(comp)
+    plan = build_batch_plan(comp, words=words, frames=frames)
+    banks = engine.plan_to_device(plan, dev)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
+    rows_of = lambda a: int(a[:, 3].max())  # noqa: E731
+    results = {}
+
+    # -- literals ------------------------------------------------------
+    _idx, lit_mat, cum = engine.literal_lanes(plan)
+    lit_args = (
+        banks["words"], up(lit_mat), up(cum), banks["limits"], banks["prevs"],
+        banks["lengths"], banks["rankb"], banks["ranked"],
+    )
+    n_dense = int(cum[-1])
+    kd, kok = literals.decode_literals(*lit_args, n_dense=n_dense)
+    (pd, pok), plain_ms = timed_once(
+        lambda: literals.literals_plain(*lit_args, n_dense=n_dense)
+    )
+    err = max_abs_err([(kd, pd), (kok, pok)])
+    regen = lit_mat[:, 3].astype(np.int64)
+    stream_bytes = 4 * int(((lit_mat[:, 1] >> 5) + 1).sum())
+    table_bytes = sum(int(banks[k].numel()) * 4 for k in ("limits", "prevs", "lengths", "rankb", "ranked"))
+    n_bytes = stream_bytes + lit_mat.nbytes + cum.nbytes + table_bytes + 4 * n_dense + 4 * len(regen)
+    b_ms, b_by = bound(n_bytes, LIT_OPS_PER_SYMBOL * int(regen.sum()))
+    ms = cuda_ms(lambda: literals.decode_literals(*lit_args, n_dense=n_dense), 10)
+    log(f"literals: lanes={len(regen)} symbols={int(regen.sum())} max_regen={int(regen.max())} "
+        f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={b_ms:.6f} ({b_by})")
+    check(err == 0 and bool(kok.all()), "literals kernel disagrees with its plain form")
+    results["literals"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # -- sequences, narrow and wide ---------------------------------------
+    _idx, seq_mat, cumw = engine.sequence_lanes(plan)
+    rows = rows_of(seq_mat)
+    seq_args = (banks["words"], up(seq_mat), banks["fse_flat0"], banks["fse_flat1"], banks["fse_off"])
+    pairs, plain_total = [], 0.0
+    for wide in (False, True):
+        k = sequences.decode_sequences(*seq_args, rows=rows, wide=wide)
+        p, p_ms = timed_once(lambda: sequences.sequences_plain(*seq_args, rows=rows, wide=wide))
+        plain_total += p_ms
+        pairs += list(zip(k, p))
+        check(bool(k[-1].all()) or not wide, "wide sequences lanes failed")
+    err = max_abs_err(pairs)
+    nseq = seq_mat[:, 3].astype(np.int64)
+    stream_bytes = 4 * int(((seq_mat[:, 1] >> 5) + 1).sum())
+    table_bytes = 4 * int(banks["fse_flat0"].numel() * 2 + banks["fse_off"].numel())
+    L = len(nseq)
+    n_bytes = stream_bytes + seq_mat.nbytes + table_bytes + 2 * 4 * rows * L + 4 * L
+    b_ms, b_by = bound(n_bytes, SEQ_OPS_PER_SEQUENCE * int(nseq.sum()))
+    ms = cuda_ms(lambda: sequences.decode_sequences(*seq_args, rows=rows), 10)
+    ms_wide = cuda_ms(lambda: sequences.decode_sequences(*seq_args, rows=rows, wide=True), 5)
+    log(f"sequences: lanes={L} sequences={int(nseq.sum())} rows={rows} max_abs_err={err} "
+        f"ms={ms:.4f} wide_ms={ms_wide:.4f} plain_ms(narrow+wide)={plain_total:.1f} "
+        f"bound_ms={b_ms:.6f} ({b_by})")
+    check(err == 0, "sequences kernel disagrees with its plain form")
+    results["sequences"] = dict(err=err, ms=ms, plain_ms=plain_total / 2, bound_ms=b_ms, bound_by=b_by)
+
+    # -- compaction of the packed word plane --------------------------------
+    da, db, _ok = sequences.decode_sequences(*seq_args, rows=rows)
+    w_ll, w_ml, w_of = (up(seq_mat[:, c]) for c in (4, 5, 6))
+    lo, hi, _over = _pack_words(da, db, w_ll, w_ml, w_of)
+    plane = to_i32(_seq_word_plane(lo, hi, w_ll, w_ml, w_of))
+    cum_t = up(cumw)
+    n_w = int(cumw[-1])
+    kc = compact.compact_lanes(plane, cum_t, n_dense=n_w)
+    pc, plain_ms = timed_once(lambda: compact.compact_plain(plane, cum_t, n_dense=n_w))
+    err = max_abs_err([(kc, pc)])
+    b_ms, b_by = bound(8 * n_w + cumw.nbytes, 0)
+    ms = cuda_ms(lambda: compact.compact_lanes(plane, cum_t, n_dense=n_w), 20)
+    log(f"compact: lanes={L} words={n_w} plane={tuple(plane.shape)} max_abs_err={err} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.6f} ({b_by})")
+    check(err == 0, "compaction kernel disagrees with its plain form")
+    results["compact"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return results
+
+
+def counters():
+    from zstd_tpu_torch.kernels import compact, literals, sequences
+
+    return {
+        "literals": literals.decode_literals,
+        "sequences": sequences.decode_sequences,
+        "compact": compact.compact_lanes,
+    }
+
+
+def end_to_end(name: str, comp: bytes, raw: bytes) -> dict:
+    """Phases 4-5: the main path once with counts from 0, then timed runs."""
+    import torch
+
+    from zstd_tpu_torch import DeviceEngine
+
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    eng = DeviceEngine()
+    out = eng.decompress(comp)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in fns.items()}
+    stats = eng.stats.as_dict()
+    check(out == raw, f"{name}: decode is not bit-exact")
+    check(stats["fallback_frames"] == 0, stats["fallback_reasons"])
+    check(all(v > 0 for v in launches.values()), f"{name}: a kernel never launched: {launches}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.decompress(comp)
+        times.append(time.perf_counter() - t0)
+    wall = statistics.median(times)
+    res = {
+        "raw_bytes": len(raw), "compressed_bytes": len(comp), "wall_s": wall,
+        "gbs": len(raw) / wall / 1e9, "launches": launches, "lit_lanes": stats["lit_lanes"],
+        "seq_lanes": stats["seq_lanes"], "retry_lanes": stats["retry_lanes"],
+        "frames": stats["frames"], "wall_split_s": eng.stats.wall_s,
+    }
+    log(f"{name}: " + json.dumps(res))
+    return res
+
+
+def retry_phase() -> dict:
+    """Phase 6: the wide retry on the card.  One 128 000-byte block whose
+    first sequence carries a 100 000-byte literal run (over the narrow
+    16-bit field): its lane must fail the narrow pass and come back
+    exact from the sequences kernel in wide mode."""
+    import numpy as np
+    import torch
+
+    from zstd_tpu_torch import DeviceEngine
+    from zstd_tpu_torch.testing import libzstd
+
+    rng = np.random.default_rng(11)
+    head = rng.integers(0, 256, 100_000, dtype=np.uint8).tobytes()
+    raw = head + head[:28_000]
+    comp = libzstd.compress(raw, 3, checksum=True)
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    eng = DeviceEngine()
+    out = eng.decompress(comp)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in fns.items()}
+    res = {"retry_lanes": eng.stats.retry_lanes, "fallback_frames": eng.stats.fallback_frames,
+           "launches": launches}
+    log("wide_retry: " + json.dumps(res))
+    check(out == raw, "wide retry decode is not bit-exact")
+    check(eng.stats.retry_lanes == 1 and eng.stats.fallback_frames == 0, res)
+    check(launches["sequences"] == 2, "the retry did not run the sequences kernel")
+    return res
+
+
+def profile_phase(comp: bytes, wall_s: float) -> dict:
+    """Phase 7: device time by kernel over one main-path decode, from
+    torch.profiler (CUPTI); the idle share is against the median wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zstd_tpu_torch import DeviceEngine
+
+    eng = DeviceEngine()
+    eng.decompress(comp)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.decompress(comp)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    # Device-side events only (kernels, copies): a host op's entry also
+    # carries the device time of what it launched.
+    dev_ms = {
+        ev.key: ev.self_device_time_total / 1e3
+        for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+    }
+    busy = sum(dev_ms.values())
+    top = dict(sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10])
+    res = {"device_busy_ms": busy, "profiled_wall_s": prof_wall, "wall_s": wall_s,
+           "idle_share": (1 - busy / 1e3 / wall_s) if busy else None, "top_device_ms": top}
+    log("profile: " + json.dumps(res))
+    return res
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (REPO / "zstd_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    import ctypes.util
+
+    from zstd_tpu_torch import native
+    from zstd_tpu_torch.kernels import _build
+    from zstd_tpu_torch.testing import libzstd
+    from zstd_tpu_torch.testing.corpus import build_corpus, compress_chunks
+
+    card = card_line()
+    log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"kernel build: {_build.build_all():.1f} s (nvcc, sm_90a)")
+    check(native.available(), "host C routines failed to build")
+
+    log(f"libzstd: {ctypes.util.find_library('zstd')}")
+    t0 = time.perf_counter()
+    raw = build_corpus()
+    comp = compress_chunks(raw, 3)
+    hl_raw = raw[: 8 << 20]
+    hl_comp = libzstd.compress(hl_raw, 19, checksum=True)
+    log(f"corpus: {len(raw)} B -> {len(comp)} B (level 3), {len(hl_raw)} B -> "
+        f"{len(hl_comp)} B (level 19) in {time.perf_counter() - t0:.1f} s")
+
+    kres = kernel_phase(comp, torch.device("cuda", 0))
+    main = end_to_end("level3_24MB", comp, raw)
+    end_to_end("level19_8MiB", hl_comp, hl_raw)
+    retry_phase()
+    profile_phase(comp, main["wall_s"])
+
+    source = {
+        "literals": ("zstd_tpu_torch/csrc/literals.cu", "zstd_tpu/kernels/pallas_lit.py:63"),
+        "sequences": ("zstd_tpu_torch/csrc/sequences.cu", "zstd_tpu/kernels/pallas_seq.py:108"),
+        "compact": ("zstd_tpu_torch/csrc/compact.cu", "zstd_tpu/kernels/compact_dma.py:37"),
+    }
+    kernels = [
+        {
+            "name": name, "route": "cuda", "source": source[name][0],
+            "replaces": source[name][1], "launches": main["launches"][name],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        }
+        for name, r in kres.items()
+    ]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch forms, on the card.
+
+Marked ``cuda``: each test skips (with the reason) where no CUDA device
+is present, as on a CPU-only host.  On the card:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+builds the kernels at first use and holds each one, exactly, to its
+plain form on the lanes of the level-3 text and combined test corpora,
+then checks the engine end to end with every kernel launched.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from torch_inputs import combined, level3_text
+from zstd_tpu_torch.format.block_table import build_batch_plan
+from zstd_tpu_torch.kernels import compact, literals, sequences
+from zstd_tpu_torch.kernels.bitbuf import to_i32
+from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
+from zstd_tpu_torch.runtime import engine
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels have no CPU form)")
+    return torch.device("cuda", 0)
+
+
+def _group(data, dev):
+    plan = build_batch_plan(data)
+    banks = engine.plan_to_device(plan, dev)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
+    return plan, banks, up
+
+
+@pytest.mark.parametrize("build", [level3_text, combined], ids=["level3_text", "combined"])
+def test_literals_kernel_matches_plain(dev, build):
+    plan, banks, up = _group(build()[0], dev)
+    _idx, lane_mat, cum = engine.literal_lanes(plan)
+    args = (banks["words"], up(lane_mat), up(cum), banks["limits"], banks["prevs"],
+            banks["lengths"], banks["rankb"], banks["ranked"])
+    n = int(cum[-1])
+    before = literals.decode_literals.launches
+    kd, kok = literals.decode_literals(*args, n_dense=n)
+    assert literals.decode_literals.launches == before + 1
+    pd, pok = literals.literals_plain(*args, n_dense=n)
+    assert torch.equal(kd, pd) and torch.equal(kok, pok)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_sequences_and_compact_kernels_match_plain(dev, wide):
+    plan, banks, up = _group(combined()[0], dev)
+    _idx, lane_mat, cumw = engine.sequence_lanes(plan)
+    rows = int(lane_mat[:, 3].max())
+    args = (banks["words"], up(lane_mat), banks["fse_flat0"], banks["fse_flat1"], banks["fse_off"])
+    k = sequences.decode_sequences(*args, rows=rows, wide=wide)
+    p = sequences.sequences_plain(*args, rows=rows, wide=wide)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    if not wide:
+        n = int(cumw[-1])
+        dense, over = sequences.pack_dense(k[0], k[1], up(lane_mat), up(cumw), n_dense_w=n)
+        ws = [up(lane_mat[:, c]) for c in (4, 5, 6)]
+        lo, hi, over_p = _pack_words(k[0], k[1], *ws)
+        plane = to_i32(_seq_word_plane(lo, hi, *ws))
+        assert torch.equal(over, over_p)
+        assert torch.equal(dense, compact.compact_plain(plane, up(cumw), n_dense=n))
+
+
+def test_engine_on_card_bit_exact_with_every_kernel(dev):
+    data, payload = combined()
+    fns = (literals.decode_literals, sequences.decode_sequences, compact.compact_lanes)
+    for f in fns:
+        f.launches = 0
+    eng = engine.DeviceEngine()
+    assert eng.device.type == "cuda"
+    assert eng.decompress(data) == payload
+    assert eng.stats.fallback_frames == 0, eng.stats.fallback_reasons
+    assert eng.stats.retry_lanes >= 1  # the overflow lane ran the wide kernel
+    assert all(f.launches > 0 for f in fns)

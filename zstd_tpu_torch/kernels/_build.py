@@ -1,0 +1,113 @@
+"""Build the CUDA kernels from ``zstd_tpu_torch/csrc`` at first use.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, in the git-ignored
+``build/zstd_tpu_torch/`` directory at the repository root, and loaded
+with ``ctypes``.  A library is rebuilt when its source or the shared
+header (``common.cuh``) is newer.  No PyTorch header is compiled, which keeps a build at
+seconds rather than the minutes ``torch.utils.cpp_extension.load``
+takes.
+
+Every C entry point takes device pointers and the CUDA stream as
+``void*`` and returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import subprocess
+import threading
+import time
+
+from ..native import BUILD_DIR
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("literals", "sequences", "compact")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel failed to build or to launch."""
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise KernelError("no CUDA toolkit found (set CUDA_HOME)")
+    return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"libzt_{name}.so"
+
+
+def _stale(name: str) -> bool:
+    so = _lib_path(name)
+    if not so.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (CSRC / f"{name}.cu", CSRC / "common.cuh"))
+    return so.stat().st_mtime < newest
+
+
+def _start(name: str) -> tuple[subprocess.Popen, pathlib.Path]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _lib_path(name).with_name(f"libzt_{name}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: pathlib.Path) -> None:
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise KernelError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, _lib_path(name))
+
+
+def build_all() -> float:
+    """Compile every stale kernel source, one ``nvcc`` per source, all
+    started together; returns the wall seconds spent."""
+    t0 = time.perf_counter()
+    with _lock:
+        jobs = [(n, *_start(n)) for n in SOURCES if _stale(n)]
+        for n, proc, tmp in jobs:
+            _finish(n, proc, tmp)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if stale."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        if _stale(name):
+            _finish(name, *_start(name))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        lib.zt_error_string.restype = ctypes.c_char_p
+        lib.zt_error_string.argtypes = [ctypes.c_int]
+        raise KernelError(f"{what}: {lib.zt_error_string(code).decode()} ({code})")
+
+
+def stream_ptr(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
