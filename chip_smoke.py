@@ -27,6 +27,18 @@ Phases, each fatal on failure (no phase's error is caught):
    packing decodes exactly through the sequences kernel in wide mode.
 7. Device time by kernel and the device's idle share over one
    main-path decode (``torch.profiler``).
+8. The LZ77 copy-program kernel against its plain form (pointer
+   doubling), tolerance 0: on the LZ77 spike's own 96 KiB program (also
+   against its expected bytes) and on the copy programs of the level-3
+   corpus's first frame group; with the host C executor's ns/byte on the
+   same frames.
+9. The device LZ77 route: ``DeviceEngine(device_execute=True).decompress``
+   of both corpora with every count set to 0 just before and read just
+   after: bit-exact, no oracle fallback, every kernel launched, one
+   ``lz77`` launch per frame group; then the wall time, median of 3.
+10. The CLI: ``python -m zstd_tpu_torch.cli --report`` on the level-19
+   file, with ``--device`` and without (it decodes on the card either
+   way): bit-exact output, and a report naming the card.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -201,26 +213,87 @@ def kernel_phase(comp: bytes, dev) -> dict:
     return results
 
 
-def counters():
-    from zstd_tpu_torch.kernels import compact, literals, sequences
+def counters(device_execute: bool = False):
+    from zstd_tpu_torch.kernels import compact, literals, lz77, sequences
 
-    return {
+    fns = {
         "literals": literals.decode_literals,
         "sequences": sequences.decode_sequences,
         "compact": compact.compact_lanes,
     }
+    if device_execute:
+        fns["lz77"] = lz77.exec_ops
+    return fns
 
 
-def end_to_end(name: str, comp: bytes, raw: bytes) -> dict:
-    """Phases 4-5: the main path once with counts from 0, then timed runs."""
+def lz77_phase(comp: bytes, dev) -> dict:
+    """Phase 8: the LZ77 copy-program kernel against its plain form, on
+    the spike's program and on the first frame group's copy programs."""
+    import torch
+
+    from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
+    from zstd_tpu_torch.kernels import lz77
+    from zstd_tpu_torch.runtime import engine
+    from zstd_tpu_torch.testing.copy_program import batch_programs
+
+    def measure(name, ops, op_off, buf, out_bytes):
+        got = lz77.exec_ops(ops, op_off, buf.clone())
+        plain, plain_ms = timed_once(lambda: lz77.exec_ops_plain(ops, op_off, buf))
+        err = max_abs_err([(got, plain)])
+        work = buf.clone()  # a program's ops rewrite the bytes they wrote: re-runs are exact
+        ms = cuda_ms(lambda: lz77.exec_ops(ops, op_off, work), 3)
+        copied = int(ops[2].sum())
+        b_ms, b_by = bound(ops.numel() * 8 + op_off.numel() * 8 + 2 * copied, 0)
+        log(f"lz77 {name}: programs={op_off.numel() - 1} ops={ops.shape[1]} copied_bytes={copied} "
+            f"output_bytes={out_bytes} max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.1f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) ns_per_output_byte={ms * 1e6 / out_bytes:.3f}")
+        check(err == 0, f"lz77 kernel disagrees with its plain form ({name})")
+        return got, dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    ops, op_off, buf, outs = batch_programs([0], out_kb=96)
+    (start, expect), = outs
+    got, _ = measure("spike_96KiB", ops.to(dev), op_off.to(dev), buf.to(dev), len(expect))
+    check(bytes(got[start : start + len(expect)].cpu().numpy()) == expect,
+          "lz77 kernel misses the spike program's expected bytes")
+
+    frames = next(engine.frame_groups(comp))
+    plan = build_batch_plan(comp, words=input_words(comp), frames=frames)
+    eng = engine.DeviceEngine(device_execute=True)
+    (lo, lok), (so, sok) = eng._run_both(plan)
+    t0 = time.perf_counter()
+    gp, idx, errors = engine.group_program(plan, lo, lok, so, sok)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    check(len(idx) == len(plan.frames) and not errors, f"copy program build failed: {errors}")
+    out_bytes = sum(n for _s, n in gp.outs)
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    _, res = measure("first_group", up(gp.ops), up(gp.op_off), up(gp.buf), out_bytes)
+    res["host_program_build_ms"] = build_ms
+    log(f"lz77 first_group: copy programs built on the host in {build_ms:.1f} ms "
+        f"({gp.blob.nbytes} bytes to upload)")
+
+    t0 = time.perf_counter()
+    for fp in plan.frames:
+        eng._assemble_frame(fp, lo, so)
+    host_s = time.perf_counter() - t0
+    res["host_c_ns_per_byte"] = host_s * 1e9 / out_bytes
+    res["kernel_ns_per_byte"] = res["ms"] * 1e6 / out_bytes
+    log(f"lz77 first_group: host C executor {host_s * 1e3:.2f} ms "
+        f"({res['host_c_ns_per_byte']:.3f} ns/byte) vs kernel {res['kernel_ns_per_byte']:.3f} ns/byte "
+        f"on {len(plan.frames)} frames, {out_bytes} output bytes")
+    return res
+
+
+def end_to_end(name: str, comp: bytes, raw: bytes, device_execute: bool = False) -> dict:
+    """Phases 4-5 and 9: a route once with counts from 0, then timed runs."""
     import torch
 
     from zstd_tpu_torch import DeviceEngine
+    from zstd_tpu_torch.runtime.engine import frame_groups
 
-    fns = counters()
+    fns = counters(device_execute)
     for f in fns.values():
         f.launches = 0
-    eng = DeviceEngine()
+    eng = DeviceEngine(device_execute=device_execute)
     out = eng.decompress(comp)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in fns.items()}
@@ -228,6 +301,9 @@ def end_to_end(name: str, comp: bytes, raw: bytes) -> dict:
     check(out == raw, f"{name}: decode is not bit-exact")
     check(stats["fallback_frames"] == 0, stats["fallback_reasons"])
     check(all(v > 0 for v in launches.values()), f"{name}: a kernel never launched: {launches}")
+    groups = sum(1 for _ in frame_groups(comp))
+    if device_execute:
+        check(launches["lz77"] == groups, f"{name}: {launches['lz77']} lz77 launches, {groups} groups")
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -236,7 +312,8 @@ def end_to_end(name: str, comp: bytes, raw: bytes) -> dict:
     wall = statistics.median(times)
     res = {
         "raw_bytes": len(raw), "compressed_bytes": len(comp), "wall_s": wall,
-        "gbs": len(raw) / wall / 1e9, "launches": launches, "lit_lanes": stats["lit_lanes"],
+        "gbs": len(raw) / wall / 1e9, "launches": launches, "groups": groups,
+        "lit_lanes": stats["lit_lanes"],
         "seq_lanes": stats["seq_lanes"], "retry_lanes": stats["retry_lanes"],
         "frames": stats["frames"], "wall_split_s": eng.stats.wall_s,
     }
@@ -306,6 +383,32 @@ def profile_phase(comp: bytes, wall_s: float) -> dict:
     return res
 
 
+def cli_phase(comp: bytes, raw: bytes) -> dict:
+    """Phase 10: the port's CLI on the card, in a process of its own, with
+    ``--device`` and without."""
+    import torch
+
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    src, dst = work / "level19.zst", work / "level19.out"
+    src.write_bytes(comp)
+    for flags in (["--device"], []):
+        dst.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "zstd_tpu_torch.cli", *flags, "--report", str(src), "-o", str(dst)],
+            cwd=REPO, capture_output=True, text=True, timeout=300,
+        )
+        wall = time.perf_counter() - t0
+        check(res.returncode == 0, f"cli {flags} exited {res.returncode}: {res.stderr[-2000:]}")
+        report = json.loads(res.stderr.strip().splitlines()[-1])
+        log(f"cli {' '.join(flags) or '(no --device)'}: process_wall_s={wall:.2f} report={json.dumps(report)}")
+        check(dst.read_bytes() == raw, f"cli {flags} output is not bit-exact")
+        check(report["device"] == torch.cuda.get_device_name(0), f"cli report device {report['device']}")
+        check(report["fallback_frames"] == 0, report)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -339,19 +442,29 @@ def main() -> int:
 
     kres = kernel_phase(comp, torch.device("cuda", 0))
     main = end_to_end("level3_24MB", comp, raw)
-    end_to_end("level19_8MiB", hl_comp, hl_raw)
+    hl = end_to_end("level19_8MiB", hl_comp, hl_raw)
     retry_phase()
     profile_phase(comp, main["wall_s"])
+
+    kres["lz77"] = lz77_phase(comp, torch.device("cuda", 0))
+    dev_main = end_to_end("device_lz77_level3_24MB", comp, raw, device_execute=True)
+    dev_hl = end_to_end("device_lz77_level19_8MiB", hl_comp, hl_raw, device_execute=True)
+    log(f"device LZ77 route vs default route, GB/s: level3_24MB {dev_main['gbs']:.4f} vs "
+        f"{main['gbs']:.4f}; level19_8MiB {dev_hl['gbs']:.4f} vs {hl['gbs']:.4f}")
+    cli_phase(hl_comp, hl_raw)
 
     source = {
         "literals": ("zstd_tpu_torch/csrc/literals.cu", "zstd_tpu/kernels/pallas_lit.py:63"),
         "sequences": ("zstd_tpu_torch/csrc/sequences.cu", "zstd_tpu/kernels/pallas_seq.py:108"),
         "compact": ("zstd_tpu_torch/csrc/compact.cu", "zstd_tpu/kernels/compact_dma.py:37"),
+        "lz77": ("zstd_tpu_torch/csrc/lz77.cu", "tools/lz77_pallas_spike.py:46"),
     }
+    # Launches on the main path; lz77's on the device LZ77 route.
+    launches = {**main["launches"], "lz77": dev_main["launches"]["lz77"]}
     kernels = [
         {
             "name": name, "route": "cuda", "source": source[name][0],
-            "replaces": source[name][1], "launches": main["launches"][name],
+            "replaces": source[name][1], "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         }

@@ -7,7 +7,9 @@ is present, as on a CPU-only host.  On the card:
 
 builds the kernels at first use and holds each one, exactly, to its
 plain form on the lanes of the level-3 text and combined test corpora,
-then checks the engine end to end with every kernel launched.
+and the LZ77 copy-program kernel on the spike's program and on the
+combined corpus's frame programs; then checks the engine end to end,
+default and device-LZ77 routes, with every kernel launched.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ import torch
 
 from torch_inputs import combined, level3_text
 from zstd_tpu_torch.format.block_table import build_batch_plan
-from zstd_tpu_torch.kernels import compact, literals, sequences
+from zstd_tpu_torch.kernels import compact, literals, lz77, sequences
 from zstd_tpu_torch.kernels.bitbuf import to_i32
 from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
 from zstd_tpu_torch.runtime import engine
+from zstd_tpu_torch.testing.copy_program import batch_programs
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +88,43 @@ def test_engine_on_card_bit_exact_with_every_kernel(dev):
     assert eng.stats.fallback_frames == 0, eng.stats.fallback_reasons
     assert eng.stats.retry_lanes >= 1  # the overflow lane ran the wide kernel
     assert all(f.launches > 0 for f in fns)
+
+
+def _lz77_inputs(which, dev):
+    if which == "spike":
+        ops, op_off, buf, _outs = batch_programs([0], out_kb=96)
+        return ops.to(dev), op_off.to(dev), buf.to(dev)
+    eng = engine.DeviceEngine(device_execute=True)
+    plan = build_batch_plan(combined()[0])
+    (lo, lok), (so, sok) = eng._run_both(plan)
+    gp, idx, errors = engine.group_program(plan, lo, lok, so, sok)
+    assert len(idx) == len(plan.frames) and not errors
+    return (torch.from_numpy(a).to(dev) for a in (gp.ops, gp.op_off, gp.buf))
+
+
+@pytest.mark.parametrize("which", ["spike", "combined"])
+def test_lz77_kernel_matches_plain(dev, which):
+    ops, op_off, buf = _lz77_inputs(which, dev)
+    before = lz77.exec_ops.launches
+    got = lz77.exec_ops(ops, op_off, buf.clone())
+    assert lz77.exec_ops.launches == before + 1
+    assert torch.equal(got, lz77.exec_ops_plain(ops, op_off, buf))
+
+
+def test_lz77_empty_programs_launch_nothing(dev):
+    # A frame group of raw and RLE blocks only gives programs with no ops.
+    buf = torch.arange(16, dtype=torch.uint8, device=dev)
+    ops = torch.zeros((3, 0), dtype=torch.int64, device=dev)
+    before = lz77.exec_ops.launches
+    got = lz77.exec_ops(ops, torch.zeros(3, dtype=torch.int64, device=dev), buf)
+    assert got is buf and lz77.exec_ops.launches == before
+    assert torch.equal(buf.cpu(), torch.arange(16, dtype=torch.uint8))
+
+
+def test_device_lz77_route_on_card(dev):
+    data, payload = combined()
+    lz77.exec_ops.launches = 0
+    eng = engine.DeviceEngine(device_execute=True)
+    assert eng.decompress(data) == payload
+    assert eng.stats.fallback_frames == 0, eng.stats.fallback_reasons
+    assert lz77.exec_ops.launches > 0

@@ -7,7 +7,9 @@ and after the wide retry, on one plan of the ``tests/test_pallas.py``
 corpora (``torch_inputs``).  Then the final bytes with
 ``fallback_frames == 0``, the multi-group pipeline with skippable frames
 at group boundaries, corrupt input, and a kernel-wrapper failure, which
-must propagate rather than fall back.
+must propagate rather than fall back.  The device LZ77 route's assembly
+is held to the JAX engine's ``_assemble_frame_device`` frame by frame on
+the same plan and lane outputs.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from zstd_tpu.runtime.oracle import decompress as jax_oracle_decompress
 from zstd_tpu.testing import libzstd
 from zstd_tpu.utils.errors import ZstdError as JaxZstdError
 from zstd_tpu_torch.format.block_table import build_batch_plan
-from zstd_tpu_torch.kernels import compact, literals, sequences
+from zstd_tpu_torch.kernels import compact, literals, lz77, sequences
 from zstd_tpu_torch.runtime import engine as t_engine
 from zstd_tpu_torch.runtime.engine import DeviceEngine
 from zstd_tpu_torch.utils.errors import ZstdError
@@ -73,6 +75,27 @@ def test_own_plan_drives_same_lanes(ref):
     (lit_outs, lit_ok), (seq_outs, seq_ok) = eng._run_both(build_batch_plan(data))
     _assert_lanes_equal(lit_outs, lit_ok, ref["lit_outs"], ref["lit_ok"], "literals")
     _assert_lanes_equal(seq_outs, seq_ok, ref["seq_outs"], ref["seq_ok"], "sequences")
+
+
+def test_device_lz77_assembly_matches_jax_frame_by_frame(ref):
+    # The JAX plan and the JAX engine's lane outputs go to both routes;
+    # JAX's pointer doubling runs op by op (no XLA compilation).
+    import jax
+
+    from zstd_tpu.runtime.engine import DeviceEngine as JaxEngine
+
+    plan = ref["plan"]
+    lanes = (ref["lit_outs"], ref["lit_ok"], ref["seq_outs"], ref["seq_ok"])
+    got = DeviceEngine(device="cpu", device_execute=True)._device_frames(plan, *lanes)
+    assert sorted(got) == list(range(len(plan.frames)))
+    jeng = JaxEngine(device_execute=True)
+    try:
+        with jax.disable_jit():
+            for i, fp in enumerate(plan.frames):
+                want = jeng._assemble_frame_device(fp, ref["lit_outs"], ref["seq_outs"])
+                assert bytes(got[i]) == want, f"frame {i}"
+    finally:
+        jeng.close()
 
 
 @pytest.mark.parametrize("name", [*CORPORA, "combined"])
@@ -135,11 +158,13 @@ def test_corrupt_input_raises_like_jax_oracle():
 
 
 @pytest.mark.parametrize(
-    "target", ["literals.decode_literals", "sequences.decode_sequences", "sequences.compact_lanes"]
+    "target",
+    ["literals.decode_literals", "sequences.decode_sequences", "sequences.compact_lanes",
+     "lz77.exec_ops"],
 )
 def test_kernel_failure_propagates(monkeypatch, target):
     module, name = target.split(".")
-    mod = {"literals": literals, "sequences": sequences}[module]
+    mod = {"literals": literals, "sequences": sequences, "lz77": lz77}[module]
 
     def boom(*a, **kw):
         raise RuntimeError(f"injected {name} failure")
@@ -147,7 +172,7 @@ def test_kernel_failure_propagates(monkeypatch, target):
     monkeypatch.setattr(mod, name, boom)
     data, _payload = CORPORA["level3_text"]()
     with pytest.raises(RuntimeError, match="injected"):
-        DeviceEngine(device="cpu").decompress(data)
+        DeviceEngine(device="cpu", device_execute=module == "lz77").decompress(data)
 
 
 def test_pure_python_assembly_without_native(monkeypatch):

@@ -14,7 +14,10 @@ Layout:
 * ``zstd_tpu_torch.runtime``  — host oracle decoder, decoding context, engine
 * ``zstd_tpu_torch.kernels``  — CUDA kernel wrappers and their plain forms
 * ``zstd_tpu_torch.native``   — ctypes bindings of the host C routines
-* ``zstd_tpu_torch.testing``  — libzstd oracle and the bench corpus
+* ``zstd_tpu_torch.testing``  — libzstd oracle, the bench corpus, the
+  LZ77 spike's copy program
+* ``zstd_tpu_torch.cli``      — command line (``python -m zstd_tpu_torch.cli``)
+* ``zstd_tpu_torch.observability`` — run reports, ``torch.profiler`` hook
 * ``csrc/``                   — CUDA (``*.cu``) and host C sources
 """
 

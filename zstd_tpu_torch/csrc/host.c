@@ -6,6 +6,8 @@
  *   - zt_xxh64: frame content checksums, from the public XXH64 spec.
  *   - zt_execute_sequences: LZ77 sequence execution with memcpy-chunked,
  *     overlap-correct copies (the engine's host assembly stage).
+ *   - zt_resolve_offsets: the repeat-offset scan of the device LZ77 route
+ *     (kernels/lz77_device.py).
  *   - zt_fse_parse_build / zt_fse_weights: FSE table parse + build and
  *     FSE-compressed Huffman weights (the host prepass's hot calls).
  *
@@ -200,6 +202,43 @@ EXPORT int zt_execute_sequences(
 
     *out_len_io = out_len;
     return ZT_OK;
+}
+
+/* ---------------------- repeat-offset resolution ------------------------ */
+
+/* Resolve n (ll, offset_value) pairs to actual offsets, maintaining the
+ * 3-slot history (decoding_context.rs:50-75) — the cheap intrinsically-
+ * serial pass of device-side sequence execution, hoisted out of Python
+ * (kernels/lz77_device.py builds per-byte source maps from these).
+ * Returns 0, or 1 on a null offset. */
+EXPORT int zt_resolve_offsets(
+    const int32_t *ll_arr, const uint32_t *ofv_arr, size_t n,
+    uint64_t *rep /* [3] */, int64_t *off_out) {
+    for (size_t i = 0; i < n; i++) {
+        uint64_t ofv = ofv_arr[i];
+        uint64_t offset;
+        if (ofv == 0) return 1;
+        if (ofv > 3) {
+            offset = ofv - 3;
+            rep[2] = rep[1]; rep[1] = rep[0]; rep[0] = offset;
+        } else {
+            uint64_t idx = (ll_arr[i] != 0) ? ofv - 1 : ofv;
+            if (idx == 0) {
+                offset = rep[0];
+            } else if (idx == 1) {
+                offset = rep[1]; rep[1] = rep[0]; rep[0] = offset;
+            } else if (idx == 2) {
+                offset = rep[2];
+                rep[2] = rep[1]; rep[1] = rep[0]; rep[0] = offset;
+            } else {
+                offset = rep[0] - 1;
+                if (offset == 0) return 1;
+                rep[2] = rep[1]; rep[1] = rep[0]; rep[0] = offset;
+            }
+        }
+        off_out[i] = (int64_t)offset;
+    }
+    return 0;
 }
 
 /* ---- FSE table parse + build (host prepass, RFC 8878 section 4.1.1) ----

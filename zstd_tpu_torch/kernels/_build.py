@@ -25,7 +25,7 @@ import time
 from ..native import BUILD_DIR
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("literals", "sequences", "compact")
+SOURCES = ("literals", "sequences", "compact", "lz77")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -49,6 +49,8 @@ def compact_lanes(plane, cum, *, n_dense: int):
         raise ValueError("compact_lanes wants a plane [rows, L] and cum [L + 1]")
     rows, L = plane.shape
     dense = torch.empty(n_dense, dtype=torch.int32, device=plane.device)
+    if rows == 0 or L == 0:  # no words to move: no launch, nothing counted
+        return dense
     lib = _build.load("compact")
     fn = lib.zt_compact
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int

@@ -8,6 +8,7 @@ the repository root, and exposes the decode side:
 * ``fse_parse_build(data)`` / ``fse_weights(payload)`` (prepass tables)
 * ``xxh64(data, seed)``
 * ``execute_sequences(out, out_len, literals, ll, ofv, ml, rep)``
+* ``resolve_offsets(ll, ofv, rep)`` (the device LZ77 route's offset scan)
 
 Every caller has a pure-Python/NumPy fallback, and the native results
 are covered by the same differential tests.
@@ -73,6 +74,14 @@ def _load() -> ctypes.CDLL | None:
             ctypes.c_void_p,  # ml int32*
             ctypes.c_size_t,  # n
             ctypes.c_void_p,  # rep uint64[3]
+        ]
+        lib.zt_resolve_offsets.restype = ctypes.c_int
+        lib.zt_resolve_offsets.argtypes = [
+            ctypes.c_void_p,  # ll int32*
+            ctypes.c_void_p,  # ofv uint32*
+            ctypes.c_size_t,  # n
+            ctypes.c_void_p,  # rep uint64[3]
+            ctypes.c_void_p,  # off_out int64*
         ]
         lib.zt_fse_parse_build.restype = ctypes.c_int
         lib.zt_fse_parse_build.argtypes = [
@@ -203,3 +212,21 @@ def execute_sequences(
     if status != 0:
         raise ValueError(f"sequence execution failed: {_STATUS.get(status, status)}")
     return out_len_c.value
+
+
+def resolve_offsets(ll, ofv, rep: np.ndarray) -> np.ndarray:
+    """Resolve (ll, offset_value) pairs to actual offsets; mutates the
+    uint64[3] ``rep`` history.  Raises ValueError on a null offset."""
+    lib = _load()
+    if lib is None:
+        raise NativeUnavailable("native library not built")
+    ll = np.ascontiguousarray(ll, dtype=np.int32)
+    ofv = np.ascontiguousarray(ofv, dtype=np.uint32)
+    out = np.empty(len(ll), dtype=np.int64)
+    status = lib.zt_resolve_offsets(
+        ll.ctypes.data, ofv.ctypes.data, len(ll), rep.ctypes.data,
+        out.ctypes.data,
+    )
+    if status != 0:
+        raise ValueError("null offset in sequence stream")
+    return out
