@@ -12,12 +12,22 @@ Phases, each fatal on failure (no phase's error is caught):
    system libzstd at level 3 with checksums, one frame per 4 MiB; and
    its first 8 MiB at level 19 (treeless and repeat tables, long
    offsets, the wide retry).
-3. Each kernel against its plain PyTorch form on the card, at the inputs
-   the main path gives it for the first frame group of the level-3
-   corpus: literals (dense bytes + ok flags), sequences narrow and wide
-   (whole planes + ok flags, pre-retry), compaction (dense words).
-   Tolerance 0: the codec is integer-exact.  Kernel times are the median
-   of several launches between CUDA events; the plain form is timed once.
+3. Each kernel against its plain PyTorch form, at the inputs the main
+   path gives it: literals (dense bytes + ok flags) and sequences narrow
+   and wide (whole planes + ok flags, pre-retry) at every frame group of
+   the level-3 corpus, and on the edge lanes of its first group
+   (``zstd_tpu_torch.testing.edge_lanes``); compaction (dense words) at
+   the first group.  Tolerance 0: the codec is integer-exact.  The first
+   group's literals and narrow sequences are compared on the card; the
+   other groups' plain forms run in CPU worker processes started first,
+   beside the card's work.  A kernel's ``ms`` is the median time between
+   CUDA events around one wrapper call (the kernel and the wrapper's host
+   time, the measure of every earlier run); ``device_ms`` is its device
+   time alone, from replays of a CUDA graph of one call, held against
+   the profiler's kernel durations in phase 7.  Both come with ns per
+   step (the longest lane's symbols or sequences) and the launch
+   geometry; the plain form is timed once on the card.  The ``ptxas -v``
+   resource lines of both lane kernels are printed first.
 4. The main path: ``DeviceEngine().decompress`` of the level-3 corpus
    with every launch count set to 0 just before and read just after;
    the output must equal the corpus, with no oracle fallback, and every
@@ -26,7 +36,8 @@ Phases, each fatal on failure (no phase's error is caught):
 6. The wide retry: a block whose first sequence overflows the narrow
    packing decodes exactly through the sequences kernel in wide mode.
 7. Device time by kernel and the device's idle share over one
-   main-path decode (``torch.profiler``).
+   main-path decode (``torch.profiler``); the lane kernels' mean time per
+   launch there must agree with phase 3's ``device_ms`` within 20%.
 8. The LZ77 copy-program kernel against its plain form (pointer
    doubling), tolerance 0: on the LZ77 spike's own 96 KiB program (also
    against its expected bytes) and on the copy programs of the level-3
@@ -81,22 +92,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device milliseconds of ``fn`` over ``reps`` runs (one warm-up)."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def timed_once(fn):
     """(result, device milliseconds) of one run of ``fn``."""
     import torch
@@ -126,90 +121,199 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _np_i32(a) -> "np.ndarray":
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    return a.view(np.int32) if a.dtype == np.uint32 else a.astype(np.int32)
+
+
+def _plain_on_cpu(kind: str, arrays: list, kw: dict) -> list:
+    """Worker process: a kernel's plain form on CPU tensors (numpy in and
+    out), for the frame groups whose comparison runs beside the card."""
+    import torch
+
+    from zstd_tpu_torch.kernels import literals, sequences
+
+    torch.set_num_threads(1)
+    fn = literals.literals_plain if kind == "literals" else sequences.sequences_plain
+    return [o.numpy() for o in fn(*(torch.from_numpy(a) for a in arrays), **kw)]
+
+
+def _lane_kernel_inputs(plan) -> dict:
+    """Both lane kernels' host inputs for one plan, as int32 numpy arrays."""
+    from zstd_tpu_torch.runtime import engine
+
+    _idx, lit_mat, cum = engine.literal_lanes(plan)
+    _idx, seq_mat, cumw = engine.sequence_lanes(plan)
+    words = _np_i32(plan.words)
+    huff = [_np_i32(getattr(plan, f"huff_{k}")) for k in ("limits", "prevs", "lengths", "rankb", "ranked")]
+    fse = [_np_i32(getattr(plan, k)) for k in ("fse_flat0", "fse_flat1", "fse_off")]
+    return {
+        "lit": [words, _np_i32(lit_mat), _np_i32(cum), *huff], "n_dense": int(cum[-1]),
+        "seq": [words, _np_i32(seq_mat), *fse], "rows": int(seq_mat[:, 3].max()),
+        "lit_mat": lit_mat, "seq_mat": seq_mat, "cumw": cumw,
+    }
+
+
 def kernel_phase(comp: bytes, dev) -> dict:
-    """Phase 3: every kernel against its plain form at one group's inputs."""
+    """Phase 3: every kernel against its plain form.  Literals and
+    sequences (narrow and wide) run and are timed at every frame group of
+    the level-3 corpus and on the edge lanes of its first group; the
+    first group's literals and narrow sequences are compared with their
+    plain forms on the card (timed: plain_ms), the other groups' in CPU
+    worker processes, all started first so they run beside the card."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
     import numpy as np
     import torch
 
     from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
-    from zstd_tpu_torch.kernels import compact, literals, sequences
+    from zstd_tpu_torch.kernels import _build, compact, literals, sequences
     from zstd_tpu_torch.kernels.bitbuf import to_i32
     from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
+    from zstd_tpu_torch.observability import device_ms, event_ms
     from zstd_tpu_torch.runtime import engine
+    from zstd_tpu_torch.testing import edge_lanes
 
-    frames = next(engine.frame_groups(comp))
     words = input_words(comp)
-    plan = build_batch_plan(comp, words=words, frames=frames)
-    banks = engine.plan_to_device(plan, dev)
-    up = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
-    rows_of = lambda a: int(a[:, 3].max())  # noqa: E731
+    plans = [build_batch_plan(comp, words=words, frames=f) for f in engine.frame_groups(comp)]
+    inputs = [_lane_kernel_inputs(plan) for plan in plans]
+    up = lambda a: torch.from_numpy(_np_i32(a)).to(dev)  # noqa: E731
     results = {}
+    for name in ("literals", "sequences"):
+        for line in _build.ptxas_report(name):
+            log(f"ptxas {name}: {line}")
 
-    # -- literals ------------------------------------------------------
-    _idx, lit_mat, cum = engine.literal_lanes(plan)
-    lit_args = (
-        banks["words"], up(lit_mat), up(cum), banks["limits"], banks["prevs"],
-        banks["lengths"], banks["rankb"], banks["ranked"],
-    )
-    n_dense = int(cum[-1])
-    kd, kok = literals.decode_literals(*lit_args, n_dense=n_dense)
-    (pd, pok), plain_ms = timed_once(
-        lambda: literals.literals_plain(*lit_args, n_dense=n_dense)
-    )
-    err = max_abs_err([(kd, pd), (kok, pok)])
-    regen = lit_mat[:, 3].astype(np.int64)
-    stream_bytes = 4 * int(((lit_mat[:, 1] >> 5) + 1).sum())
-    table_bytes = sum(int(banks[k].numel()) * 4 for k in ("limits", "prevs", "lengths", "rankb", "ranked"))
-    n_bytes = stream_bytes + lit_mat.nbytes + cum.nbytes + table_bytes + 4 * n_dense + 4 * len(regen)
-    b_ms, b_by = bound(n_bytes, LIT_OPS_PER_SYMBOL * int(regen.sum()))
-    ms = cuda_ms(lambda: literals.decode_literals(*lit_args, n_dense=n_dense), 10)
-    log(f"literals: lanes={len(regen)} symbols={int(regen.sum())} max_regen={int(regen.max())} "
-        f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={b_ms:.6f} ({b_by})")
-    check(err == 0 and bool(kok.all()), "literals kernel disagrees with its plain form")
-    results["literals"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu = {}  # (group, kind) -> future of the plain form's outputs
+        for g, x in enumerate(inputs):
+            if g:
+                cpu[g, "literals"] = pool.submit(_plain_on_cpu, "literals", x["lit"], {"n_dense": x["n_dense"]})
+                cpu[g, "narrow"] = pool.submit(_plain_on_cpu, "sequences", x["seq"], {"rows": x["rows"]})
+            cpu[g, "wide"] = pool.submit(_plain_on_cpu, "sequences", x["seq"], {"rows": x["rows"], "wide": True})
+        log(f"kernels vs plain: {len(cpu)} plain runs in {workers} CPU worker processes")
 
-    # -- sequences, narrow and wide ---------------------------------------
-    _idx, seq_mat, cumw = engine.sequence_lanes(plan)
-    rows = rows_of(seq_mat)
-    seq_args = (banks["words"], up(seq_mat), banks["fse_flat0"], banks["fse_flat1"], banks["fse_off"])
-    pairs, plain_total = [], 0.0
-    for wide in (False, True):
-        k = sequences.decode_sequences(*seq_args, rows=rows, wide=wide)
-        p, p_ms = timed_once(lambda: sequences.sequences_plain(*seq_args, rows=rows, wide=wide))
-        plain_total += p_ms
-        pairs += list(zip(k, p))
-        check(bool(k[-1].all()) or not wide, "wide sequences lanes failed")
-    err = max_abs_err(pairs)
-    nseq = seq_mat[:, 3].astype(np.int64)
-    stream_bytes = 4 * int(((seq_mat[:, 1] >> 5) + 1).sum())
-    table_bytes = 4 * int(banks["fse_flat0"].numel() * 2 + banks["fse_off"].numel())
-    L = len(nseq)
-    n_bytes = stream_bytes + seq_mat.nbytes + table_bytes + 2 * 4 * rows * L + 4 * L
-    b_ms, b_by = bound(n_bytes, SEQ_OPS_PER_SEQUENCE * int(nseq.sum()))
-    ms = cuda_ms(lambda: sequences.decode_sequences(*seq_args, rows=rows), 10)
-    ms_wide = cuda_ms(lambda: sequences.decode_sequences(*seq_args, rows=rows, wide=True), 5)
-    log(f"sequences: lanes={L} sequences={int(nseq.sum())} rows={rows} max_abs_err={err} "
-        f"ms={ms:.4f} wide_ms={ms_wide:.4f} plain_ms(narrow+wide)={plain_total:.1f} "
-        f"bound_ms={b_ms:.6f} ({b_by})")
-    check(err == 0, "sequences kernel disagrees with its plain form")
-    results["sequences"] = dict(err=err, ms=ms, plain_ms=plain_total / 2, bound_ms=b_ms, bound_by=b_by)
+        kept = {}  # (group, kind) -> the kernel's outputs, on the host
+        device = {"literals": [], "sequences": []}  # device ms by group
+        errs = {"literals": 0, "sequences": 0}
+        for g, x in enumerate(inputs):
+            # -- literals ----------------------------------------------------
+            lit_args = [up(a) for a in x["lit"]]
+            n_dense = x["n_dense"]
+            run_lit = lambda: literals.decode_literals(*lit_args, n_dense=n_dense)  # noqa: E731
+            kd, kok = run_lit()
+            geo = _build.launch_info("literals", len(x["lit_mat"]))
+            check(bool(kok.all()), f"group {g}: a literal lane is not ok")
+            regen = x["lit_mat"][:, 3].astype(np.int64)
+            stream_bytes = 4 * int(((x["lit_mat"][:, 1] >> 5) + 1).sum())
+            table_bytes = sum(a.nbytes for a in x["lit"][3:])
+            n_bytes = stream_bytes + x["lit_mat"].nbytes + x["lit"][2].nbytes + table_bytes + 4 * n_dense + 4 * len(regen)
+            b_ms, b_by = bound(n_bytes, LIT_OPS_PER_SYMBOL * int(regen.sum()))
+            ms, dev_ms = event_ms(run_lit, 10), device_ms(run_lit, 10)
+            device["literals"].append(dev_ms)
+            res = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by)
+            if g == 0:
+                (pd, pok), res["plain_ms"] = timed_once(
+                    lambda: literals.literals_plain(*lit_args, n_dense=n_dense))
+                errs["literals"] = max(errs["literals"], max_abs_err([(kd, pd), (kok, pok)]))
+                results["literals"] = res
+            else:
+                kept[g, "literals"] = [kd.cpu(), kok.cpu()]
+            log(f"literals group {g}: lanes={len(regen)} symbols={int(regen.sum())} "
+                f"longest={int(regen.max())} ms={ms:.4f} ns_per_step={ms * 1e6 / regen.max():.1f} "
+                f"device_ms={dev_ms:.4f} device_ns_per_step={dev_ms * 1e6 / regen.max():.1f} "
+                f"bound_ms={b_ms:.6f} ({b_by}) geometry={json.dumps(geo)}")
 
-    # -- compaction of the packed word plane --------------------------------
-    da, db, _ok = sequences.decode_sequences(*seq_args, rows=rows)
-    w_ll, w_ml, w_of = (up(seq_mat[:, c]) for c in (4, 5, 6))
+            # -- sequences, narrow and wide -----------------------------------
+            seq_args = [up(a) for a in x["seq"]]
+            rows = x["rows"]
+            nseq = x["seq_mat"][:, 3].astype(np.int64)
+            stream_bytes = 4 * int(((x["seq_mat"][:, 1] >> 5) + 1).sum())
+            table_bytes = sum(a.nbytes for a in x["seq"][2:])
+            L = len(nseq)
+            n_bytes = stream_bytes + x["seq_mat"].nbytes + table_bytes + 2 * 4 * rows * L + 4 * L
+            b_ms, b_by = bound(n_bytes, SEQ_OPS_PER_SEQUENCE * int(nseq.sum()))
+            res = dict(bound_ms=b_ms, bound_by=b_by)
+            for wide in (False, True):
+                kind = "wide" if wide else "narrow"
+                run_seq = lambda: sequences.decode_sequences(*seq_args, rows=rows, wide=wide)  # noqa: E731
+                k = run_seq()
+                check(bool(k[-1].all()) or not wide, f"group {g}: a wide sequences lane failed")
+                res[f"{kind}_ms"] = event_ms(run_seq, 10 if not wide else 5)
+                res[f"{kind}_device_ms"] = device_ms(run_seq, 10 if not wide else 5)
+                res[f"{kind}_geometry"] = _build.launch_info("sequences", L, wide)
+                if g == 0 and not wide:
+                    p, res["plain_ms"] = timed_once(lambda: sequences.sequences_plain(*seq_args, rows=rows))
+                    errs["sequences"] = max(errs["sequences"], max_abs_err(zip(k, p)))
+                else:
+                    kept[g, kind] = [t.cpu() for t in k]
+            res["ms"], res["device_ms"] = res["narrow_ms"], res["narrow_device_ms"]
+            device["sequences"].append(res["device_ms"])
+            if g == 0:
+                results["sequences"] = res
+            log(f"sequences group {g}: lanes={L} sequences={int(nseq.sum())} longest={rows} "
+                + " ".join(f"{p}ms={res[f'{k}_ms']:.4f} {p}ns_per_step={res[f'{k}_ms'] * 1e6 / rows:.1f} "
+                           f"{p}device_ms={res[f'{k}_device_ms']:.4f} "
+                           f"{p}device_ns_per_step={res[f'{k}_device_ms'] * 1e6 / rows:.1f}"
+                           for k, p in (("narrow", ""), ("wide", "wide_")))
+                + f" bound_ms={b_ms:.6f} ({b_by}) geometry={json.dumps(res['narrow_geometry'])}"
+                f" wide_geometry={json.dumps(res['wide_geometry'])}")
+
+        # -- edge lanes of the first group, kernel against plain on the card ---
+        rng = np.random.default_rng(3)
+        e = edge_lanes.literal_edges(plans[0], rng, cap=255)  # a last word that completes 32
+        args = [up(words), up(e.lane_mat), up(e.cum), *(up(e.banks[k]) for k in edge_lanes.HUFF_BANKS)]
+        n = int(e.cum[-1])
+        err = max_abs_err(zip(literals.decode_literals(*args, n_dense=n),
+                              literals.literals_plain(*args, n_dense=n)))
+        errs["literals"] = max(errs["literals"], err)
+        log(f"literals edge lanes {e.names}: max_abs_err={err}")
+        e = edge_lanes.sequence_edges(plans[0], rng, cap=255)
+        args = [up(words), up(e.lane_mat), *(up(e.banks[k]) for k in edge_lanes.FSE_BANKS)]
+        for wide in (False, True):
+            err = max_abs_err(zip(sequences.decode_sequences(*args, rows=e.rows, wide=wide),
+                                  sequences.sequences_plain(*args, rows=e.rows, wide=wide)))
+            errs["sequences"] = max(errs["sequences"], err)
+            log(f"sequences edge lanes {e.names} wide={wide}: max_abs_err={err}")
+
+        t0 = time.perf_counter()
+        for (g, kind), fut in cpu.items():
+            err = max_abs_err(zip(kept[g, kind], (torch.from_numpy(a) for a in fut.result())))
+            name = "literals" if kind == "literals" else "sequences"
+            errs[name] = max(errs[name], err)
+            log(f"group {g} {kind}: max_abs_err={err} (plain form on the CPU)")
+        log(f"kernels vs plain: waited {time.perf_counter() - t0:.1f} s for the CPU workers")
+    finally:
+        pool.shutdown(cancel_futures=True)
+    for name, err in errs.items():
+        results[name]["err"] = err
+        results[name]["device_ms_by_group"] = device[name]
+        check(err == 0, f"{name} kernel disagrees with its plain form")
+
+    # -- compaction of the packed word plane (first group) -------------------
+    x = inputs[0]
+    seq_args = [up(a) for a in x["seq"]]
+    da, db, _ok = sequences.decode_sequences(*seq_args, rows=x["rows"])
+    w_ll, w_ml, w_of = (up(x["seq_mat"][:, c]) for c in (4, 5, 6))
     lo, hi, _over = _pack_words(da, db, w_ll, w_ml, w_of)
     plane = to_i32(_seq_word_plane(lo, hi, w_ll, w_ml, w_of))
-    cum_t = up(cumw)
-    n_w = int(cumw[-1])
+    cum_t = up(x["cumw"])
+    n_w = int(x["cumw"][-1])
     kc = compact.compact_lanes(plane, cum_t, n_dense=n_w)
     pc, plain_ms = timed_once(lambda: compact.compact_plain(plane, cum_t, n_dense=n_w))
     err = max_abs_err([(kc, pc)])
-    b_ms, b_by = bound(8 * n_w + cumw.nbytes, 0)
-    ms = cuda_ms(lambda: compact.compact_lanes(plane, cum_t, n_dense=n_w), 20)
-    log(f"compact: lanes={L} words={n_w} plane={tuple(plane.shape)} max_abs_err={err} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.6f} ({b_by})")
+    b_ms, b_by = bound(8 * n_w + x["cumw"].nbytes, 0)
+    run_compact = lambda: compact.compact_lanes(plane, cum_t, n_dense=n_w)  # noqa: E731
+    ms, dev_ms = event_ms(run_compact, 20), device_ms(run_compact, 20)
+    log(f"compact: lanes={len(x['seq_mat'])} words={n_w} plane={tuple(plane.shape)} max_abs_err={err} "
+        f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.6f} ({b_by})")
     check(err == 0, "compaction kernel disagrees with its plain form")
-    results["compact"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    results["compact"] = dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     return results
 
 
@@ -233,6 +337,7 @@ def lz77_phase(comp: bytes, dev) -> dict:
 
     from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
     from zstd_tpu_torch.kernels import lz77
+    from zstd_tpu_torch.observability import event_ms
     from zstd_tpu_torch.runtime import engine
     from zstd_tpu_torch.testing.copy_program import batch_programs
 
@@ -241,14 +346,16 @@ def lz77_phase(comp: bytes, dev) -> dict:
         plain, plain_ms = timed_once(lambda: lz77.exec_ops_plain(ops, op_off, buf))
         err = max_abs_err([(got, plain)])
         work = buf.clone()  # a program's ops rewrite the bytes they wrote: re-runs are exact
-        ms = cuda_ms(lambda: lz77.exec_ops(ops, op_off, work), 3)
+        # exec_ops checks its ops on the host before the launch, so it is
+        # timed between events: the kernel takes ~10^5 times that check.
+        ms = event_ms(lambda: lz77.exec_ops(ops, op_off, work), 3)
         copied = int(ops[2].sum())
         b_ms, b_by = bound(ops.numel() * 8 + op_off.numel() * 8 + 2 * copied, 0)
         log(f"lz77 {name}: programs={op_off.numel() - 1} ops={ops.shape[1]} copied_bytes={copied} "
             f"output_bytes={out_bytes} max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.1f} "
             f"bound_ms={b_ms:.6f} ({b_by}) ns_per_output_byte={ms * 1e6 / out_bytes:.3f}")
         check(err == 0, f"lz77 kernel disagrees with its plain form ({name})")
-        return got, dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        return got, dict(err=err, ms=ms, device_ms=None, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
     ops, op_off, buf, outs = batch_programs([0], out_kb=96)
     (start, expect), = outs
@@ -352,9 +459,11 @@ def retry_phase() -> dict:
     return res
 
 
-def profile_phase(comp: bytes, wall_s: float) -> dict:
+def profile_phase(comp: bytes, wall_s: float, kres: dict) -> dict:
     """Phase 7: device time by kernel over one main-path decode, from
-    torch.profiler (CUPTI); the idle share is against the median wall."""
+    torch.profiler (CUPTI); the idle share is against the median wall.
+    The lane kernels' mean time per launch must agree with the mean of
+    phase 3's ``device_ms`` (CUDA-graph replays) over the frame groups."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -380,6 +489,15 @@ def profile_phase(comp: bytes, wall_s: float) -> dict:
     res = {"device_busy_ms": busy, "profiled_wall_s": prof_wall, "wall_s": wall_s,
            "idle_share": (1 - busy / 1e3 / wall_s) if busy else None, "top_device_ms": top}
     log("profile: " + json.dumps(res))
+    for name, key in (("literals", "literals_kernel"), ("sequences", "sequences_kernel<false>")):
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and key in ev.key and ev.count]
+        check(len(evs) == 1, f"profile: {len(evs)} device entries for {key}")
+        per_launch = evs[0].self_device_time_total / 1e3 / evs[0].count
+        graph = statistics.mean(kres[name]["device_ms_by_group"])
+        log(f"profile: {name} {evs[0].count} launches, {per_launch:.4f} ms per launch; "
+            f"phase 3 device_ms mean {graph:.4f} (ratio {graph / per_launch:.3f})")
+        check(0.8 <= graph / per_launch <= 1.25, f"{name}: device_ms disagrees with the profiler")
     return res
 
 
@@ -428,6 +546,11 @@ def main() -> int:
 
     card = card_line()
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    log(f"SM clock (now, max): {clocks.stdout.strip().splitlines()[0]}")
     log(f"kernel build: {_build.build_all():.1f} s (nvcc, sm_90a)")
     check(native.available(), "host C routines failed to build")
 
@@ -444,7 +567,7 @@ def main() -> int:
     main = end_to_end("level3_24MB", comp, raw)
     hl = end_to_end("level19_8MiB", hl_comp, hl_raw)
     retry_phase()
-    profile_phase(comp, main["wall_s"])
+    profile_phase(comp, main["wall_s"], kres)
 
     kres["lz77"] = lz77_phase(comp, torch.device("cuda", 0))
     dev_main = end_to_end("device_lz77_level3_24MB", comp, raw, device_execute=True)
@@ -465,7 +588,7 @@ def main() -> int:
         {
             "name": name, "route": "cuda", "source": source[name][0],
             "replaces": source[name][1], "launches": launches[name],
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": r["err"], "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         }
         for name, r in kres.items()

@@ -6,10 +6,12 @@ is present, as on a CPU-only host.  On the card:
     python -m pytest tests/test_torch_cuda.py -q
 
 builds the kernels at first use and holds each one, exactly, to its
-plain form on the lanes of the level-3 text and combined test corpora,
-and the LZ77 copy-program kernel on the spike's program and on the
-combined corpus's frame programs; then checks the engine end to end,
-default and device-LZ77 routes, with every kernel launched.
+plain form on the lanes of the level-3 text and combined test corpora
+(the literals and sequences kernels also at every frame group of the
+combined corpus and on the edge lanes of ``testing.edge_lanes``), and
+the LZ77 copy-program kernel on the spike's program and on the combined
+corpus's frame programs; then checks the engine end to end, default and
+device-LZ77 routes, with every kernel launched.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from zstd_tpu_torch.kernels import compact, literals, lz77, sequences
 from zstd_tpu_torch.kernels.bitbuf import to_i32
 from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
 from zstd_tpu_torch.runtime import engine
+from zstd_tpu_torch.testing import edge_lanes
 from zstd_tpu_torch.testing.copy_program import batch_programs
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +78,54 @@ def test_sequences_and_compact_kernels_match_plain(dev, wide):
         plane = to_i32(_seq_word_plane(lo, hi, *ws))
         assert torch.equal(over, over_p)
         assert torch.equal(dense, compact.compact_plain(plane, up(cumw), n_dense=n))
+
+
+def _literals_match_plain(words, lane_mat, cum, huff):
+    n = int(cum[-1])
+    k = literals.decode_literals(words, lane_mat, cum, *huff, n_dense=n)
+    p = literals.literals_plain(words, lane_mat, cum, *huff, n_dense=n)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+def _sequences_match_plain(words, lane_mat, fse, rows):
+    for wide in (False, True):
+        k = sequences.decode_sequences(words, lane_mat, *fse, rows=rows, wide=wide)
+        p = sequences.sequences_plain(words, lane_mat, *fse, rows=rows, wide=wide)
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+def test_lane_kernels_match_plain_on_every_frame_group(dev):
+    data = combined()[0]
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
+    launches = (literals.decode_literals.launches, sequences.decode_sequences.launches)
+    groups = list(engine.frame_groups(data))
+    for frames in groups:
+        plan = build_batch_plan(data, frames=frames)
+        banks = engine.plan_to_device(plan, dev)
+        _idx, lit_mat, cum = engine.literal_lanes(plan)
+        if len(lit_mat):
+            _literals_match_plain(banks["words"], up(lit_mat), up(cum),
+                                  [banks[k] for k in edge_lanes.HUFF_BANKS])
+        _idx, seq_mat, _cumw = engine.sequence_lanes(plan)
+        if len(seq_mat):
+            _sequences_match_plain(banks["words"], up(seq_mat),
+                                   [banks[k] for k in edge_lanes.FSE_BANKS], int(seq_mat[:, 3].max()))
+    assert len(groups) > 1
+    assert literals.decode_literals.launches > launches[0]
+    assert sequences.decode_sequences.launches == launches[1] + 2 * len(groups)
+
+
+@pytest.mark.parametrize("cap", [1, 40, 127, 300])
+def test_lane_kernels_match_plain_on_edge_lanes(dev, cap):
+    plan = build_batch_plan(combined()[0])
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
+    words = up(plan.words)
+    lit = edge_lanes.literal_edges(plan, np.random.default_rng(cap), cap=cap)
+    _literals_match_plain(words, up(lit.lane_mat), up(lit.cum),
+                          [up(lit.banks[k]) for k in edge_lanes.HUFF_BANKS])
+    seq = edge_lanes.sequence_edges(plan, np.random.default_rng(cap), cap=cap)
+    _sequences_match_plain(words, up(seq.lane_mat), [up(seq.banks[k]) for k in edge_lanes.FSE_BANKS],
+                           seq.rows)
 
 
 def test_engine_on_card_bit_exact_with_every_kernel(dev):

@@ -6,7 +6,9 @@ into a shared library with a plain C interface, in the git-ignored
 with ``ctypes``.  A library is rebuilt when its source or the shared
 header (``common.cuh``) is newer.  No PyTorch header is compiled, which keeps a build at
 seconds rather than the minutes ``torch.utils.cpp_extension.load``
-takes.
+takes.  Each build keeps ``ptxas``'s resource report (``-Xptxas -v``:
+registers, shared memory, stack frame and spills of every kernel) in
+``<name>.ptxas.txt`` beside the library (:func:`ptxas_report`).
 
 Every C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch;
@@ -28,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("literals", "sequences", "compact", "lz77")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -51,6 +53,10 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"libzt_{name}.so"
 
 
+def _report_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"{name}.ptxas.txt"
+
+
 def _stale(name: str) -> bool:
     so = _lib_path(name)
     if not so.exists():
@@ -71,6 +77,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: pathlib.Path) -> None:
     out, _ = proc.communicate(timeout=600)
     if proc.returncode != 0:
         raise KernelError(f"nvcc failed for {name}.cu:\n{out}")
+    _report_path(name).write_text(out)
     os.replace(tmp, _lib_path(name))
 
 
@@ -104,6 +111,32 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         lib.zt_error_string.restype = ctypes.c_char_p
         lib.zt_error_string.argtypes = [ctypes.c_int]
         raise KernelError(f"{what}: {lib.zt_error_string(code).decode()} ({code})")
+
+
+def ptxas_report(name: str) -> list[str]:
+    """The resource lines of ``ptxas -v`` from the last build of ``name``:
+    each kernel's stack frame, spills, registers and shared memory."""
+    keep = ("Compiling entry", "stack frame", "Used")
+    lines = _report_path(name).read_text().splitlines()
+    return [ln.strip() for ln in lines if any(k in ln for k in keep)]
+
+
+def launch_info(name: str, n_lanes: int, wide: bool = False) -> dict:
+    """Launch geometry of a lane kernel (``literals``, ``sequences``; the
+    narrow or ``wide`` instance) for ``n_lanes`` lanes, with its compiled
+    resources from the CUDA runtime.  ``sms`` is the SMs the launch spreads over,
+    min(blocks, SM count): a block is one warp with a few KB of shared
+    memory, so every block of a launch is resident at once."""
+    import torch
+
+    lib = load(name)
+    out = (ctypes.c_int * 6)()
+    lib.zt_launch_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    check(lib, lib.zt_launch_info(n_lanes, int(wide), out), f"{name} launch info")
+    keys = ("blocks", "threads", "dynamic_smem_bytes", "static_smem_bytes", "registers", "local_bytes")
+    info = dict(zip(keys, out))
+    info["sms"] = min(info["blocks"], torch.cuda.get_device_properties(0).multi_processor_count)
+    return info
 
 
 def stream_ptr(t) -> int:

@@ -2,14 +2,15 @@
 plain PyTorch form.
 
 Replaces the TPU kernel ``zstd_tpu/kernels/pallas_lit.py:63``
-(``_kernel`` behind ``decode_literals_dense_pl``).  One CUDA thread per
-literal stream loads its own stream words from the device copy of the
-input, so the (W, L) window and the ``MAX_W`` cap of the TPU design are
-gone; it writes its symbols straight to the dense output.  Bound on the
-H100: each symbol's position depends on the previous symbol's code
-length, so a lane is a serial chain of dependent loads and the kernel is
-latency bound at the few hundred lanes a call has (the bytes it moves
-would take microseconds at 3.35 TB/s).  ``PERF.md`` keeps its times.
+(``_kernel`` behind ``decode_literals_dense_pl``).  Each symbol's
+position depends on the previous symbol's code length, so a lane is a
+serial chain and a launch takes its longest lane's chain.  The kernel
+gives each lane one warp of its own (one block per lane, 256 lanes over
+the 132 SMs), builds direct 2 048-entry length and symbol tables for the
+lane's Huffman table in shared memory, and peeks from a 64-bit window
+loaded a symbol ahead from a shared ring of stream words; it writes four
+symbols per u32 straight to the dense output.  Its times (~28 ns per
+symbol on an H100) and what holds it are in ``PERF.md``.
 
 A wrapper handed CPU tensors runs the plain form; handed CUDA tensors it
 launches the kernel, and raises if the kernel cannot build or launch.

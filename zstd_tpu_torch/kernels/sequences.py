@@ -4,13 +4,14 @@ and its plain PyTorch form, plus the elementwise word packing around it.
 Replaces the TPU kernel ``zstd_tpu/kernels/pallas_seq.py:108``
 (``_kernel`` behind ``decode_sequences_dense_pl``) in narrow mode, and
 the lax.scan wide form the JAX engine retries overflow lanes on, in
-wide mode.  One CUDA thread per sequence stream reads its own stream
-words and FSE table entries straight from device memory — no window, no
-one-hot selects, no step ladder: each thread loops to its lane's nseq
-and the planes are as tall as the call's longest lane.  Bound on the
-H100: every state depends on the bits the previous sequence consumed,
-so a lane is a serial chain and the kernel is latency bound at the few
-dozen lanes a call has.  ``PERF.md`` keeps its times.
+wide mode.  Every state depends on the bits the previous sequence
+consumed, so a lane is a serial chain and a launch takes its longest
+lane's chain.  The kernel gives each lane one warp of its own (one block
+per lane, so a frame group's 64 lanes reach 64 SMs), stages the lane's
+three FSE tables in shared memory as pre-digested 16-byte rows, and reads
+the stream from a shared ring of words: a sequence's six reads go out
+together once its three rows are loaded.  Its times (~100 ns per
+sequence on an H100) and what holds it are in ``PERF.md``.
 
 :func:`pack_dense` field-packs the narrow planes into the word format
 the host unpacks (one u32 per sequence, two when the lane's field-width

@@ -89,3 +89,46 @@ def profiled(trace_dir: str | None = None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+def event_ms(fn, reps: int) -> float:
+    """Median milliseconds between CUDA events around one call of ``fn``
+    over ``reps`` calls, after one warm-up call: the device's work plus
+    the call's host time."""
+    import statistics
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``, whose work is CUDA launches
+    on the current stream with no host synchronisation: ``fn`` runs once,
+    is captured into a CUDA graph, and the graph is replayed ``reps``
+    times back to back between two CUDA events.  Unlike events around a
+    call, it leaves out the call's host time (argument checks,
+    allocation, the launch itself)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
