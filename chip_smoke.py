@@ -17,17 +17,19 @@ Phases, each fatal on failure (no phase's error is caught):
    and wide (whole planes + ok flags, pre-retry) at every frame group of
    the level-3 corpus, and on the edge lanes of its first group
    (``zstd_tpu_torch.testing.edge_lanes``); compaction (dense words) at
-   the first group.  Tolerance 0: the codec is integer-exact.  The first
-   group's literals and narrow sequences are compared on the card; the
-   other groups' plain forms run in CPU worker processes started first,
-   beside the card's work.  A kernel's ``ms`` is the median time between
-   CUDA events around one wrapper call (the kernel and the wrapper's host
-   time, the measure of every earlier run); ``device_ms`` is its device
-   time alone, from replays of a CUDA graph of one call, held against
-   the profiler's kernel durations in phase 7.  Both come with ns per
-   step (the longest lane's symbols or sequences) and the launch
-   geometry; the plain form is timed once on the card.  The ``ptxas -v``
-   resource lines of both lane kernels are printed first.
+   every frame group, beside the one PyTorch call that computes it
+   (``plane.t()[mask]``, ``library_ms``).  Tolerance 0: the codec is
+   integer-exact.  The first group's literals and narrow sequences are
+   compared on the card; the other groups' plain forms run in CPU worker
+   processes started first, beside the card's work.  A kernel's ``ms`` is
+   the median time between CUDA events around one wrapper call (the
+   kernel and the wrapper's host time, the measure of every earlier run);
+   ``device_ms`` is its device time alone, from replays of a CUDA graph
+   of one call, held against the profiler's kernel durations in phase 7
+   (compaction's, a few microseconds, is the profiler's over 20 calls).
+   Both come with ns per step (the longest lane's symbols or sequences)
+   and the launch geometry; the plain form is timed once on the card.
+   The ``ptxas -v`` resource lines of every kernel are printed first.
 4. The main path: ``DeviceEngine().decompress`` of the level-3 corpus
    with every launch count set to 0 just before and read just after;
    the output must equal the corpus, with no oracle fallback, and every
@@ -40,13 +42,19 @@ Phases, each fatal on failure (no phase's error is caught):
    launch there must agree with phase 3's ``device_ms`` within 20%.
 8. The LZ77 copy-program kernel against its plain form (pointer
    doubling), tolerance 0: on the LZ77 spike's own 96 KiB program (also
-   against its expected bytes) and on the copy programs of the level-3
-   corpus's first frame group; with the host C executor's ns/byte on the
-   same frames.
-9. The device LZ77 route: ``DeviceEngine(device_execute=True).decompress``
+   against its expected bytes), on the adversarial programs of
+   ``zstd_tpu_torch.testing.copy_program`` (one at positions just below
+   2^31) and on the copy programs of the level-3 corpus's first frame
+   group; per call its CUDA launches, jump rounds, event ms, device ms
+   (CUDA-graph replays of ``lz77.launch``) and the profiler's device ms
+   by kernel; with the host C executor's ns/byte on the same frames.
+9. The device LZ77 route: its assembly of each level-3 frame group step
+   by step from outside the engine (program build, upload, LZ77 call,
+   fetch, XXH64); then ``DeviceEngine(device_execute=True).decompress``
    of both corpora with every count set to 0 just before and read just
    after: bit-exact, no oracle fallback, every kernel launched, one
-   ``lz77`` launch per frame group; then the wall time, median of 3.
+   ``lz77`` wrapper call per frame group (and its CUDA launches); then
+   the wall time, median of 3.
 10. The CLI: ``python -m zstd_tpu_torch.cli --report`` on the level-19
    file, with ``--device`` and without (it decodes on the card either
    way): bit-exact output, and a report naming the card.
@@ -171,9 +179,7 @@ def kernel_phase(comp: bytes, dev) -> dict:
     import torch
 
     from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
-    from zstd_tpu_torch.kernels import _build, compact, literals, sequences
-    from zstd_tpu_torch.kernels.bitbuf import to_i32
-    from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
+    from zstd_tpu_torch.kernels import _build, literals, sequences
     from zstd_tpu_torch.observability import device_ms, event_ms
     from zstd_tpu_torch.runtime import engine
     from zstd_tpu_torch.testing import edge_lanes
@@ -183,7 +189,7 @@ def kernel_phase(comp: bytes, dev) -> dict:
     inputs = [_lane_kernel_inputs(plan) for plan in plans]
     up = lambda a: torch.from_numpy(_np_i32(a)).to(dev)  # noqa: E731
     results = {}
-    for name in ("literals", "sequences"):
+    for name in _build.SOURCES:
         for line in _build.ptxas_report(name):
             log(f"ptxas {name}: {line}")
 
@@ -295,26 +301,57 @@ def kernel_phase(comp: bytes, dev) -> dict:
         results[name]["device_ms_by_group"] = device[name]
         check(err == 0, f"{name} kernel disagrees with its plain form")
 
-    # -- compaction of the packed word plane (first group) -------------------
-    x = inputs[0]
-    seq_args = [up(a) for a in x["seq"]]
-    da, db, _ok = sequences.decode_sequences(*seq_args, rows=x["rows"])
-    w_ll, w_ml, w_of = (up(x["seq_mat"][:, c]) for c in (4, 5, 6))
-    lo, hi, _over = _pack_words(da, db, w_ll, w_ml, w_of)
-    plane = to_i32(_seq_word_plane(lo, hi, w_ll, w_ml, w_of))
-    cum_t = up(x["cumw"])
-    n_w = int(x["cumw"][-1])
-    kc = compact.compact_lanes(plane, cum_t, n_dense=n_w)
-    pc, plain_ms = timed_once(lambda: compact.compact_plain(plane, cum_t, n_dense=n_w))
-    err = max_abs_err([(kc, pc)])
-    b_ms, b_by = bound(8 * n_w + x["cumw"].nbytes, 0)
-    run_compact = lambda: compact.compact_lanes(plane, cum_t, n_dense=n_w)  # noqa: E731
-    ms, dev_ms = event_ms(run_compact, 20), device_ms(run_compact, 20)
-    log(f"compact: lanes={len(x['seq_mat'])} words={n_w} plane={tuple(plane.shape)} max_abs_err={err} "
-        f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.6f} ({b_by})")
-    check(err == 0, "compaction kernel disagrees with its plain form")
-    results["compact"] = dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    results["compact"] = compact_phase(inputs, up, dev)
     return results
+
+
+def compact_phase(inputs: list, up, dev) -> dict:
+    """Phase 3, compaction: the packed word plane of every frame group's
+    narrow sequences, kernel against plain form on the card, timed (event
+    and device ms) beside the one PyTorch call that computes the same
+    function, ``plane.t()[mask]`` with the mask built beforehand.  Device
+    ms is the profiler's, per launch over 20 calls."""
+    import torch
+
+    from zstd_tpu_torch.kernels import compact, sequences
+    from zstd_tpu_torch.kernels.bitbuf import to_i32
+    from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
+    from zstd_tpu_torch.observability import event_ms
+
+    res, err = None, 0
+    for g, x in enumerate(inputs):
+        da, db, _ok = sequences.decode_sequences(*(up(a) for a in x["seq"]), rows=x["rows"])
+        w_ll, w_ml, w_of = (up(x["seq_mat"][:, c]) for c in (4, 5, 6))
+        lo, hi, _over = _pack_words(da, db, w_ll, w_ml, w_of)
+        plane = to_i32(_seq_word_plane(lo, hi, w_ll, w_ml, w_of))
+        cum_t = up(x["cumw"])
+        n_w = int(x["cumw"][-1])
+        kc = compact.compact_lanes(plane, cum_t, n_dense=n_w)
+        pc, plain_ms = timed_once(lambda: compact.compact_plain(plane, cum_t, n_dense=n_w))
+        mask = torch.arange(plane.shape[0], device=dev)[None, :] < (cum_t[1:] - cum_t[:-1])[:, None]
+        library = lambda: plane.t()[mask]  # noqa: E731
+        g_err = max_abs_err([(kc, pc)])
+        err = max(err, g_err)
+        check(max_abs_err([(library(), pc)]) == 0, f"group {g}: the library call differs from the plain form")
+        b_ms, b_by = bound(8 * n_w + x["cumw"].nbytes, 0)
+        run_compact = lambda: compact.compact_lanes(plane, cum_t, n_dense=n_w)  # noqa: E731
+        # A launch takes a few microseconds, less than a CUDA graph replay
+        # takes to submit, so device time comes from the profiler.
+        ms, lib_ms = event_ms(run_compact, 20), event_ms(library, 20)
+        dev_ms = sum(profiled_kernels(run_compact, "compact_kernel", 20)[0].values())
+        lib_dev_ms = sum(profiled_kernels(library, "", 20)[0].values())
+        rows, L = plane.shape
+        log(f"compact group {g}: lanes={L} words={n_w} plane={(rows, L)} max_abs_err={g_err} "
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} library_ms={lib_ms:.4f} library_device_ms={lib_dev_ms:.4f} "
+            f"plain_ms={plain_ms:.3f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) grid={(-(-L // 32), -(-rows // 128))}")
+        if g == 0:
+            res = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by, device_ms_by_group=[])
+        res["device_ms_by_group"].append(dev_ms)
+    check(err == 0, "compaction kernel disagrees with its plain form")
+    res["err"] = err
+    return res
 
 
 def counters(device_execute: bool = False):
@@ -330,38 +367,113 @@ def counters(device_execute: bool = False):
     return fns
 
 
+def profiled_kernels(run, key: str, reps: int = 1) -> tuple[dict, int, list]:
+    """Device milliseconds per call of ``run`` by CUDA kernel whose name
+    holds ``key`` (the name's part after ``key``; every device event for
+    an empty key), over ``reps`` calls, the launches per call, and each
+    launch's milliseconds in order, from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    name = lambda k: k.split(key, 1)[1].split("(", 1)[0] if key else k  # noqa: E731
+    split, launches = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and key in ev.key:
+            split[name(ev.key)] = ev.self_device_time_total / 1e3 / reps
+            launches += ev.count
+    check(split, f"profile: no {key} kernel on the device")
+    each = sorted((ev.time_range.start, name(ev.key), ev.time_range.elapsed_us() / 1e3)
+                  for ev in prof.events() if ev.device_type == DeviceType.CUDA and key in ev.key)
+    return split, launches // reps, [(n, ms) for _t, n, ms in each]
+
+
+def lz77_device_split(run) -> dict:
+    """Device milliseconds of one LZ77 wrapper call by kernel (init,
+    expand, jump, gather; ``torch.profiler``) and their sum, the number of
+    CUDA launches the profiler saw, and each jump round's milliseconds."""
+    split, launches, each = profiled_kernels(run, "lz77_")
+    rounds = [round(ms, 4) for name, ms in each if name == "jump"]
+    return {"profiler_ms": sum(split.values()), "by_kernel_ms": split, "profiler_launches": launches,
+            "jump_round_ms": rounds}
+
+
 def lz77_phase(comp: bytes, dev) -> dict:
     """Phase 8: the LZ77 copy-program kernel against its plain form, on
-    the spike's program and on the first frame group's copy programs."""
+    the spike's program, on the first frame group's copy programs, on the
+    adversarial programs and at positions just below 2^31; per call its
+    CUDA launches, jump rounds and device time."""
     import torch
 
     from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
     from zstd_tpu_torch.kernels import lz77
-    from zstd_tpu_torch.observability import event_ms
+    from zstd_tpu_torch.observability import device_ms, event_ms
     from zstd_tpu_torch.runtime import engine
-    from zstd_tpu_torch.testing.copy_program import batch_programs
+    from zstd_tpu_torch.testing.copy_program import adversarial_programs, batch_programs, place_high
+
+    def run_once(ops, op_off, buf):
+        """The kernel once on a copy of ``buf``: (result, CUDA launches,
+        (rounds run, round budget, resolved))."""
+        before = lz77.exec_ops.cuda_launches
+        got = lz77.exec_ops(ops, op_off, buf.clone())
+        return got, lz77.exec_ops.cuda_launches - before, lz77.last_rounds()
 
     def measure(name, ops, op_off, buf, out_bytes):
-        got = lz77.exec_ops(ops, op_off, buf.clone())
+        got, cuda_launches, (rounds, budget, resolved) = run_once(ops, op_off, buf)
+        check(resolved, f"lz77 {name}: map entries left open after {budget} rounds")
         plain, plain_ms = timed_once(lambda: lz77.exec_ops_plain(ops, op_off, buf))
         err = max_abs_err([(got, plain)])
         work = buf.clone()  # a program's ops rewrite the bytes they wrote: re-runs are exact
-        # exec_ops checks its ops on the host before the launch, so it is
-        # timed between events: the kernel takes ~10^5 times that check.
-        ms = event_ms(lambda: lz77.exec_ops(ops, op_off, work), 3)
+        # exec_ops checks its ops on the host (one synchronisation) before
+        # the launches, so its event time includes that check; device_ms
+        # replays a CUDA graph of the launches alone (lz77.launch).
+        ms = event_ms(lambda: lz77.exec_ops(ops, op_off, work), 5)
+        lo, hi = lz77._check(ops, op_off, work)
+        dev_ms = device_ms(lambda: lz77.launch(ops, op_off, work, lo, hi), 10)
+        prof = lz77_device_split(lambda: lz77.exec_ops(ops, op_off, work))
+        check(torch.equal(work, plain), f"lz77 {name}: re-runs changed the result")
         copied = int(ops[2].sum())
         b_ms, b_by = bound(ops.numel() * 8 + op_off.numel() * 8 + 2 * copied, 0)
         log(f"lz77 {name}: programs={op_off.numel() - 1} ops={ops.shape[1]} copied_bytes={copied} "
-            f"output_bytes={out_bytes} max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.1f} "
-            f"bound_ms={b_ms:.6f} ({b_by}) ns_per_output_byte={ms * 1e6 / out_bytes:.3f}")
+            f"output_bytes={out_bytes} span={hi - lo} max_abs_err={err} cuda_launches={cuda_launches} "
+            f"rounds={rounds} of {budget} ms={ms:.4f} device_ms={dev_ms:.4f} "
+            f"profiler={json.dumps(prof)} plain_ms={plain_ms:.2f} bound_ms={b_ms:.6f} ({b_by}) "
+            f"ns_per_output_byte={ms * 1e6 / out_bytes:.3f} device_ns_per_output_byte={dev_ms * 1e6 / out_bytes:.4f}")
         check(err == 0, f"lz77 kernel disagrees with its plain form ({name})")
-        return got, dict(err=err, ms=ms, device_ms=None, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        return got, dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         cuda_launches=cuda_launches, rounds=rounds, round_budget=budget, **prof)
 
     ops, op_off, buf, outs = batch_programs([0], out_kb=96)
     (start, expect), = outs
-    got, _ = measure("spike_96KiB", ops.to(dev), op_off.to(dev), buf.to(dev), len(expect))
+    got, spike = measure("spike_96KiB", ops.to(dev), op_off.to(dev), buf.to(dev), len(expect))
     check(bytes(got[start : start + len(expect)].cpu().numpy()) == expect,
           "lz77 kernel misses the spike program's expected bytes")
+
+    err = spike["err"]
+    for name, (ops, op_off, buf) in adversarial_programs().items():
+        ops, op_off, buf = ops.to(dev), op_off.to(dev), buf.to(dev)
+        got, cuda_launches, (rounds, budget, resolved) = run_once(ops, op_off, buf)
+        want = lz77.exec_ops_plain(ops, op_off, buf)
+        e = max_abs_err([(got, want)])
+        log(f"lz77 adversarial {name}: ops={ops.shape[1]} copied_bytes={int(ops[2].sum())} "
+            f"max_abs_err={e} cuda_launches={cuda_launches} rounds={rounds} of {budget}")
+        check(resolved, f"lz77 adversarial {name}: entries left open")
+        err = max(err, e)
+        if name == "offset_below_len":  # the same program at positions just below 2^31
+            hops, big, base = place_high(ops, buf, (1 << 31) - 1)
+            lz77.exec_ops(hops, op_off, big)
+            e = max_abs_err([(big[base:], want)]) + int(bool(big[:base].any()))
+            log(f"lz77 adversarial {name} at base {base} (buffer 2^31 - 1 bytes): max_abs_err={e}")
+            err = max(err, e)
+            del big
+            torch.cuda.empty_cache()
+    check(err == 0, "lz77 kernel disagrees with its plain form on an adversarial program")
 
     frames = next(engine.frame_groups(comp))
     plan = build_batch_plan(comp, words=input_words(comp), frames=frames)
@@ -374,6 +486,7 @@ def lz77_phase(comp: bytes, dev) -> dict:
     out_bytes = sum(n for _s, n in gp.outs)
     up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     _, res = measure("first_group", up(gp.ops), up(gp.op_off), up(gp.buf), out_bytes)
+    res["err"] = max(res["err"], err)  # the kernels line's max_abs_err: every comparison above
     res["host_program_build_ms"] = build_ms
     log(f"lz77 first_group: copy programs built on the host in {build_ms:.1f} ms "
         f"({gp.blob.nbytes} bytes to upload)")
@@ -390,20 +503,66 @@ def lz77_phase(comp: bytes, dev) -> dict:
     return res
 
 
+def device_route_split(comp: bytes, dev) -> None:
+    """Phase 9, before the route's own run: the device LZ77 route's
+    assembly of each frame group of the level-3 corpus, step by step and
+    timed from outside the engine (host clock, a synchronisation after
+    each step): copy-program build, upload, LZ77 wrapper call, fetch,
+    XXH64 of every frame."""
+    import torch
+
+    from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
+    from zstd_tpu_torch.kernels import lz77
+    from zstd_tpu_torch.runtime import engine
+    from zstd_tpu_torch.utils.xxh64 import xxh64
+
+    eng = engine.DeviceEngine(device_execute=True)
+    words = input_words(comp)
+    for g, frames in enumerate(engine.frame_groups(comp)):
+        plan = build_batch_plan(comp, words=words, frames=frames)
+        (lo, lok), (so, sok) = eng._run_both(plan)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        gp, idx, errors = engine.group_program(plan, lo, lok, so, sok)
+        t.append(time.perf_counter())
+        blob = torch.from_numpy(gp.blob).to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ops, op_off, buf = gp.split(blob)
+        lz77.exec_ops(ops, op_off, buf)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        (host,) = eng._to_host([buf])
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        flat = memoryview(host.numpy())
+        for fp, (start, n) in zip([plan.frames[i] for i in idx], gp.outs):
+            check(xxh64(flat[start : start + n]) & 0xFFFFFFFF == fp.frame.checksum, f"group {g}: checksum")
+        t.append(time.perf_counter())
+        check(len(idx) == len(plan.frames) and not errors, f"group {g}: copy program build failed: {errors}")
+        steps = dict(zip(("program_build", "upload", "lz77_call", "fetch", "xxh64"),
+                         ((b - a) * 1e3 for a, b in zip(t, t[1:]))))
+        log("device route split: " + json.dumps({"group": g, "frames": len(idx), "blob_bytes": gp.blob.nbytes,
+                                                  "ms": steps, "total_ms": (t[-1] - t[0]) * 1e3}))
+
+
 def end_to_end(name: str, comp: bytes, raw: bytes, device_execute: bool = False) -> dict:
     """Phases 4-5 and 9: a route once with counts from 0, then timed runs."""
     import torch
 
     from zstd_tpu_torch import DeviceEngine
+    from zstd_tpu_torch.kernels import lz77
     from zstd_tpu_torch.runtime.engine import frame_groups
 
     fns = counters(device_execute)
     for f in fns.values():
         f.launches = 0
+    lz77.exec_ops.cuda_launches = 0
     eng = DeviceEngine(device_execute=device_execute)
     out = eng.decompress(comp)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in fns.items()}
+    lz77_cuda_launches = lz77.exec_ops.cuda_launches
     stats = eng.stats.as_dict()
     check(out == raw, f"{name}: decode is not bit-exact")
     check(stats["fallback_frames"] == 0, stats["fallback_reasons"])
@@ -424,6 +583,8 @@ def end_to_end(name: str, comp: bytes, raw: bytes, device_execute: bool = False)
         "seq_lanes": stats["seq_lanes"], "retry_lanes": stats["retry_lanes"],
         "frames": stats["frames"], "wall_split_s": eng.stats.wall_s,
     }
+    if device_execute:
+        res["lz77_cuda_launches"] = lz77_cuda_launches
     log(f"{name}: " + json.dumps(res))
     return res
 
@@ -570,6 +731,7 @@ def main() -> int:
     profile_phase(comp, main["wall_s"], kres)
 
     kres["lz77"] = lz77_phase(comp, torch.device("cuda", 0))
+    device_route_split(comp, torch.device("cuda", 0))
     dev_main = end_to_end("device_lz77_level3_24MB", comp, raw, device_execute=True)
     dev_hl = end_to_end("device_lz77_level19_8MiB", hl_comp, hl_raw, device_execute=True)
     log(f"device LZ77 route vs default route, GB/s: level3_24MB {dev_main['gbs']:.4f} vs "
@@ -589,7 +751,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source[name][0],
             "replaces": source[name][1], "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
         }
         for name, r in kres.items()
     ]

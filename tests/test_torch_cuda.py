@@ -9,8 +9,10 @@ builds the kernels at first use and holds each one, exactly, to its
 plain form on the lanes of the level-3 text and combined test corpora
 (the literals and sequences kernels also at every frame group of the
 combined corpus and on the edge lanes of ``testing.edge_lanes``), and
-the LZ77 copy-program kernel on the spike's program and on the combined
-corpus's frame programs; then checks the engine end to end, default and
+the compaction kernel at every frame group and at edge shapes, the LZ77
+copy-program kernel on the spike's program, on the combined corpus's
+frame programs, on the adversarial programs of ``testing.copy_program``
+and at positions just below 2^31; then checks the engine end to end, default and
 device-LZ77 routes, with every kernel launched.
 """
 
@@ -27,7 +29,7 @@ from zstd_tpu_torch.kernels.bitbuf import to_i32
 from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
 from zstd_tpu_torch.runtime import engine
 from zstd_tpu_torch.testing import edge_lanes
-from zstd_tpu_torch.testing.copy_program import batch_programs
+from zstd_tpu_torch.testing.copy_program import ADVERSARIAL, adversarial_programs, batch_programs, place_high
 
 pytestmark = pytest.mark.cuda
 
@@ -94,6 +96,16 @@ def _sequences_match_plain(words, lane_mat, fse, rows):
         assert all(torch.equal(a, b) for a, b in zip(k, p))
 
 
+def _compact_matches_plain(banks, lane_mat, cumw):
+    da, db, _ok = sequences.decode_sequences(banks["words"], lane_mat, *(banks[k] for k in edge_lanes.FSE_BANKS),
+                                             rows=int(lane_mat[:, 3].max()))
+    ws = [lane_mat[:, c].contiguous() for c in (4, 5, 6)]
+    lo, hi, _over = _pack_words(da, db, *ws)
+    plane = to_i32(_seq_word_plane(lo, hi, *ws))
+    n = int(cumw[-1])
+    assert torch.equal(compact.compact_lanes(plane, cumw, n_dense=n), compact.compact_plain(plane, cumw, n_dense=n))
+
+
 def test_lane_kernels_match_plain_on_every_frame_group(dev):
     data = combined()[0]
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
@@ -106,13 +118,14 @@ def test_lane_kernels_match_plain_on_every_frame_group(dev):
         if len(lit_mat):
             _literals_match_plain(banks["words"], up(lit_mat), up(cum),
                                   [banks[k] for k in edge_lanes.HUFF_BANKS])
-        _idx, seq_mat, _cumw = engine.sequence_lanes(plan)
+        _idx, seq_mat, cumw = engine.sequence_lanes(plan)
         if len(seq_mat):
             _sequences_match_plain(banks["words"], up(seq_mat),
                                    [banks[k] for k in edge_lanes.FSE_BANKS], int(seq_mat[:, 3].max()))
+            _compact_matches_plain(banks, up(seq_mat), up(cumw))
     assert len(groups) > 1
     assert literals.decode_literals.launches > launches[0]
-    assert sequences.decode_sequences.launches == launches[1] + 2 * len(groups)
+    assert sequences.decode_sequences.launches == launches[1] + 3 * len(groups)
 
 
 @pytest.mark.parametrize("cap", [1, 40, 127, 300])
@@ -145,6 +158,8 @@ def _lz77_inputs(which, dev):
     if which == "spike":
         ops, op_off, buf, _outs = batch_programs([0], out_kb=96)
         return ops.to(dev), op_off.to(dev), buf.to(dev)
+    if which in ADVERSARIAL:
+        return (t.to(dev) for t in adversarial_programs()[which])
     eng = engine.DeviceEngine(device_execute=True)
     plan = build_batch_plan(combined()[0])
     (lo, lok), (so, sok) = eng._run_both(plan)
@@ -153,13 +168,46 @@ def _lz77_inputs(which, dev):
     return (torch.from_numpy(a).to(dev) for a in (gp.ops, gp.op_off, gp.buf))
 
 
-@pytest.mark.parametrize("which", ["spike", "combined"])
+@pytest.mark.parametrize("which", ["spike", "combined", *ADVERSARIAL])
 def test_lz77_kernel_matches_plain(dev, which):
     ops, op_off, buf = _lz77_inputs(which, dev)
-    before = lz77.exec_ops.launches
+    before = lz77.exec_ops.launches, lz77.exec_ops.cuda_launches
     got = lz77.exec_ops(ops, op_off, buf.clone())
-    assert lz77.exec_ops.launches == before + 1
+    rounds, budget, resolved = lz77.last_rounds()
+    assert lz77.exec_ops.launches == before[0] + 1
+    assert lz77.exec_ops.cuda_launches == before[1] + budget + 3
+    assert resolved and 1 <= rounds <= budget
     assert torch.equal(got, lz77.exec_ops_plain(ops, op_off, buf))
+
+
+def test_lz77_kernel_near_2_31(dev):
+    # Positions just below 2^31: the largest buffer the wrapper takes.
+    ops, op_off, buf = adversarial_programs()["offset_below_len"]
+    want = lz77.exec_ops_plain(ops, op_off, buf)
+    hops, big, base = place_high(ops.to(dev), buf.to(dev), (1 << 31) - 1)
+    lz77.exec_ops(hops, op_off.to(dev), big)
+    assert torch.equal(big[base:].cpu(), want)
+    assert not bool(big[:base].any())
+    del big
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize(
+    "lanes, rows, counts",
+    [(1, 300, "full"), (1, 5, "zero"), (33, 257, "random"), (33, 129, "zero_and_full"),
+     (64, 1000, "random"), (40, 128, "full")],
+)
+def test_compact_kernel_matches_plain_at_edge_shapes(dev, lanes, rows, counts):
+    rng = np.random.default_rng(lanes * 1000 + rows)
+    plane = torch.from_numpy(rng.integers(-(2**31), 2**31, (rows, lanes)).astype(np.int32)).to(dev)
+    n = {"full": np.full(lanes, rows), "zero": np.zeros(lanes, np.int64),
+         "random": rng.integers(0, rows + 1, lanes),
+         "zero_and_full": np.where(np.arange(lanes) % 2, rows, 0)}[counts]
+    cum = torch.from_numpy(np.concatenate([[0], np.cumsum(n)]).astype(np.int32)).to(dev)
+    before = compact.compact_lanes.launches
+    got = compact.compact_lanes(plane, cum, n_dense=int(n.sum()))
+    assert compact.compact_lanes.launches == before + 1
+    assert torch.equal(got, compact.compact_plain(plane, cum, n_dense=int(n.sum())))
 
 
 def test_lz77_empty_programs_launch_nothing(dev):

@@ -28,7 +28,9 @@ from zstd_tpu_torch.format.literals import LiteralsType
 from zstd_tpu_torch.kernels import lz77, lz77_device
 from zstd_tpu_torch.ops.sequence_codes import INITIAL_REPEAT_OFFSETS
 from zstd_tpu_torch.runtime.engine import DeviceEngine
-from zstd_tpu_torch.testing.copy_program import batch_programs, build_program
+from zstd_tpu_torch.testing.copy_program import (
+    ADVERSARIAL, adversarial_programs, batch_programs, build_program,
+)
 from zstd_tpu_torch.utils.errors import ImpossibleValue, ZstdError
 
 TOOLS = pathlib.Path(__file__).resolve().parent.parent / "tools"
@@ -159,17 +161,44 @@ def test_exec_ops_batch_in_place_equals_serial():
 
 @pytest.mark.parametrize(
     "op, reason", [((5, 5, 1), "src == dst"), ((6, 5, 1), "src > dst"), ((-1, 5, 1), "src < 0"),
-                   ((0, 60, 8), "past the buffer"), ((0, 5, -1), "negative length")],
+                   ((0, 60, 8), "past the buffer"), ((0, 5, -1), "negative length"),
+                   ([(0, 10, 4), (1, 8, 1)], "dst descends in a program"),
+                   ([(0, 10, 4), (1, 13, 2)], "dst ranges overlap in a program"),
+                   ([(0, 10, 4), (1, 14, 2), (0, 15, 1)], "overlap after a touching op"),
+                   ((0, 5, 1, 1 << 31), "buffer of 2^31 bytes")],
 )
 def test_exec_ops_rejects_bad_programs(op, reason):
-    ops = torch.tensor([[op[0]], [op[1]], [op[2]]], dtype=torch.int64)
+    size = op[3] if isinstance(op, tuple) and len(op) == 4 else 64
+    rows = [op[:3]] if isinstance(op, tuple) else op
+    ops = torch.tensor(rows, dtype=torch.int64).T.contiguous()
+    # torch.empty leaves the pages of a 2 GiB buffer untouched: nothing is read
     with pytest.raises(ValueError):
-        lz77.exec_ops(ops, torch.tensor([0, 1]), torch.zeros(64, dtype=torch.uint8))
+        lz77.exec_ops(ops, torch.tensor([0, ops.shape[1]]), torch.empty(size, dtype=torch.uint8))
     good = torch.tensor([[0], [5], [1]], dtype=torch.int64)
     with pytest.raises(ValueError):  # op ranges must cover the ops
         lz77.exec_ops(good, torch.tensor([0, 2]), torch.zeros(64, dtype=torch.uint8))
     with pytest.raises(ValueError):  # dtype
         lz77.exec_ops(good.int(), torch.tensor([0, 1]), torch.zeros(64, dtype=torch.uint8))
+
+
+def test_exec_ops_accepts_overlap_across_programs():
+    # Destinations ascend within each program only: the second program's
+    # ops may lie below the first's (they write disjoint bytes).
+    buf = torch.arange(64, dtype=torch.uint8)
+    ops = torch.tensor([[40, 2], [50, 10], [4, 3]], dtype=torch.int64)
+    want = _run_serial(ops.numpy(), buf.numpy())
+    lz77.exec_ops(ops, torch.tensor([0, 1, 2]), buf)
+    np.testing.assert_array_equal(buf.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_exec_ops_plain_equals_serial_on_adversarial_programs(name):
+    ops, op_off, buf = adversarial_programs()[name]
+    want = _run_serial(ops.numpy(), buf.numpy())
+    np.testing.assert_array_equal(lz77.exec_ops_plain(ops, op_off, buf).numpy(), want)
+    if name == "deep_chain":  # 4 096 matches, each reading the one before
+        src, dst = ops[0, 2::2], ops[1, :-1:2]
+        assert ops.shape[1] == 1 + 2 * 4096 and torch.equal(src, dst)
 
 
 def _seq_block(lits: bytes, ll, ofv, ml):

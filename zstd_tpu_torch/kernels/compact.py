@@ -6,10 +6,13 @@ Replaces the TPU kernel ``zstd_tpu/kernels/compact_dma.py:37``
 ``cum[j+1] - cum[j]`` words of a (rows, L) plane land at
 ``dense[cum[j]:cum[j+1]]``.  The TPU form needed 1024-word-aligned
 offsets and a fetch pad (Mosaic HBM tiling) and ran only for big calls;
-here one CUDA block per lane copies its words at any offset, for every
-sequences call.  Bound on the H100: bytes over the memory rate; the
-plane's column reads are strided, so the kernel falls well short of it.
-``PERF.md`` keeps its times.
+here it runs for every sequences call, at any offset, as a tiled
+transpose: a block takes 32 lanes by 128 rows of the plane, reads them
+row by row (32 neighbouring lanes a 128-byte line) into padded shared
+memory, and writes each lane's run of words contiguously, so the grid
+covers the plane over every SM.  Bound on the H100: bytes over the
+memory rate (each kept word read once and written once).  ``PERF.md``
+keeps its times.
 
 A wrapper handed CPU tensors runs the plain form; handed CUDA tensors it
 launches the kernel, and raises if the kernel cannot build or launch.
