@@ -58,6 +58,30 @@ Phases, each fatal on failure (no phase's error is caught):
 10. The CLI: ``python -m zstd_tpu_torch.cli --report`` on the level-19
    file, with ``--device`` and without (it decodes on the card either
    way): bit-exact output, and a report naming the card.
+11. Sharded: ``ShardedEngine`` over every card there is (``make_mesh()``)
+   and over ``make_mesh(2, device="cuda:0")`` (two blocks on one card).
+   On one plan of the whole level-3 corpus (every group's lanes in one
+   launch a lane list: 736 literal and 184 sequence lanes, shapes phase 3
+   does not reach), the single-device engine's per-lane outputs and ok
+   flags before and after the wide retry equal the plain forms' (the same
+   engine on the CPU, in a worker process started first) and each mesh's
+   (tolerance 0); then ``decompress`` with every count set to 0 just
+   before: bit-exact, no oracle fallback, each mesh position launching
+   once for each lane list whose block it holds; the wall, median of 3,
+   and the device time of one decode by kernel (``torch.profiler``).
+   With one card, a line says that a mesh over real cards and launches on
+   a second card are not run.
+12. Multihost: two worker processes (``testing/multihost_job.py``) join a
+   gloo group on 127.0.0.1, each decodes the level-3 corpus with
+   ``MultihostEngine`` on ``cuda:0``: both bit-exact with one SHA-256, each
+   with kernels launched over its own bin only and no oracle fallback,
+   bins balanced within 25%; each process's bins, the bytes and seconds
+   of its two exchanges, and its walls (its first decode, then the median
+   of three more).  A worker that fails or outlives its timeout fails
+   the run.
+13. Phase split: one decode with ``measure_phases``: bit-exact, and the
+   split dispatch / upload_wait / device_compute / fetch beside the total
+   (and what prepass, assembly and the four leave: the host finish).
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -688,6 +712,171 @@ def cli_phase(comp: bytes, raw: bytes) -> dict:
     return report
 
 
+def blocks_with_work(n_lanes: int, size: int) -> list[int]:
+    """Per mesh position, 1 where its contiguous block of ceil(n / size)
+    lanes (the engine's split) holds a lane."""
+    step = -(-n_lanes // size)
+    return [int(i * step < n_lanes) for i in range(size)]
+
+
+def _one_plan_plain(comp: bytes) -> tuple:
+    """Worker process: one plan of the whole input through the engine on
+    the CPU, where every kernel wrapper runs its plain form, lane by lane
+    (``testing.lanes.engine_lanes``)."""
+    import torch
+
+    from zstd_tpu_torch import DeviceEngine
+    from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
+    from zstd_tpu_torch.testing.lanes import engine_lanes
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    plan = build_batch_plan(comp, words=input_words(comp))
+    return engine_lanes(DeviceEngine(device="cpu"), plan), time.perf_counter() - t0
+
+
+def sharded_phase(comp: bytes, raw: bytes, meshes: dict, dev) -> dict:
+    """Phase 11: one plan of the whole input (every frame group's lanes in
+    one launch a lane list) through the single-device engine on the card,
+    held lane by lane to the plain forms (the same engine on the CPU, in a
+    worker process started first) and to ShardedEngine over each mesh;
+    then each mesh end to end with counts from 0 and the wall, median of
+    3, once the worker is done."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from zstd_tpu_torch import DeviceEngine
+    from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
+    from zstd_tpu_torch.parallel.dist import ShardedEngine
+    from zstd_tpu_torch.testing.lanes import engine_lanes, lane_diffs
+
+    kinds = ("literals", "pre_retry_sequences", "sequences")
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        plain_run = pool.submit(_one_plan_plain, comp)
+        plan = build_batch_plan(comp, words=input_words(comp))
+        want = engine_lanes(DeviceEngine(device=dev), plan)
+        lists = {"literals": int((plan.lit_regen > 0).sum()), "sequences": int((plan.seq_nseq > 0).sum()),
+                 "retry": int((~want[1][1]).sum())}
+        engines, out = {}, {}
+        for name, mesh in meshes.items():
+            eng = engines[name] = ShardedEngine(mesh)
+            got = engine_lanes(eng, plan)
+            diffs = {k: lane_diffs(g, w) for k, g, w in zip(kinds, got, want)}
+            check(not any(diffs.values()), f"sharded {name}: lanes differ from the single-device engine: {diffs}")
+            blocks = {k: blocks_with_work(n, mesh.size) for k, n in lists.items()}
+            expect = [sum(b[i] for b in blocks.values()) for i in range(mesh.size)]
+            check(eng.stats.mesh_calls == expect, f"sharded {name}: launches by position {eng.stats.mesh_calls}, "
+                                                  f"blocks with work {expect}")
+            out[name] = {"devices": [str(d) for d in mesh.devices], "lane_diffs": diffs, "lanes": lists,
+                         "blocks": blocks, "expect_mesh_calls": expect}
+        t0 = time.perf_counter()
+        plain, plain_s = plain_run.result()
+        plain_diffs = {k: lane_diffs(w, p) for k, w, p in zip(kinds, want, plain)}
+        log(f"one plan, {lists['literals']} literal and {lists['sequences']} sequence lanes a launch: "
+            f"single-device engine on the card vs plain forms on the CPU: lanes that differ {json.dumps(plain_diffs)} "
+            f"(plain run {plain_s:.1f} s in a worker process, waited {time.perf_counter() - t0:.1f} s)")
+        check(not any(plain_diffs.values()), f"one-plan lanes on the card differ from the plain forms: {plain_diffs}")
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+    for name, eng in engines.items():
+        res, blocks, expect = out[name], out[name].pop("blocks"), out[name].pop("expect_mesh_calls")
+        fns = counters()
+        for f in fns.values():
+            f.launches = 0
+        dec = eng.decompress(comp)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in fns.items()}
+        stats = eng.stats.as_dict()
+        check(dec == raw, f"sharded {name}: decode is not bit-exact")
+        check(stats["fallback_frames"] == 0, stats["fallback_reasons"])
+        check(stats["mesh_calls"] == expect, f"sharded {name}: decode launches by position {stats['mesh_calls']}")
+        if dev.type == "cuda":
+            want_launches = {"literals": sum(blocks["literals"]), "compact": sum(blocks["sequences"]),
+                             "sequences": sum(blocks["sequences"]) + sum(blocks["retry"])}
+            check(launches == want_launches, f"sharded {name}: wrapper launches {launches}, want {want_launches}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.decompress(comp)
+            times.append(time.perf_counter() - t0)
+        wall = statistics.median(times)
+        res.update(mesh_calls=stats["mesh_calls"], launches=launches, wall_s=wall, walls_s=times,
+                   gbs=len(raw) / wall / 1e9, wall_split_s=stats["wall_s"])
+        if dev.type == "cuda":  # device time of one decode, by kernel (torch.profiler)
+            split = profiled_kernels(lambda: eng.decompress(comp), "")[0]
+            res["device_ms"] = {
+                "busy": sum(split.values()),
+                "sequences": sum(v for k, v in split.items() if "sequences_kernel" in k),
+                "literals": sum(v for k, v in split.items() if "literals_kernel" in k),
+                "compact": sum(v for k, v in split.items() if "compact_kernel" in k),
+            }
+        log(f"sharded {name}: " + json.dumps(res))
+    return out
+
+
+def multihost_phase(comp: bytes, raw: bytes, device: str) -> dict:
+    """Phase 12: a two-process gloo job on one machine, each process with a
+    MultihostEngine on ``device``; every check is fatal."""
+    import hashlib
+
+    from zstd_tpu_torch.testing import multihost_job
+
+    work = REPO / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    src, expect = work / "level3.zst", work / "level3.raw"
+    src.write_bytes(comp)
+    expect.write_bytes(raw)
+    t0 = time.perf_counter()
+    results = multihost_job.run_job(src, expect, nproc=2, device=device, timeout=300, reps=4)
+    job_s = time.perf_counter() - t0
+    sha = hashlib.sha256(raw).hexdigest()
+    for r in results:
+        rank = r["rank"]
+        check(r["exact"] and r["all_reps_equal"] and r["sha256"] == sha,
+              f"multihost process {rank}: output is not bit-exact")
+        check(r["kernel_calls"] > 0 and r["fallback_frames"] == 0, f"multihost process {rank}: {r}")
+        if device.startswith("cuda"):
+            check(all(v > 0 for v in r["launches"].values()), f"multihost process {rank}: {r['launches']}")
+        for phase, ran in (("literals", r["lit_lanes_run"]), ("sequences", r["seq_lanes_run"])):
+            b = r["bins"][phase]
+            check(ran == b["lanes_with_work"][rank], f"multihost process {rank}: {ran} {phase} lanes "
+                                                     f"launched, its bin has {b['lanes_with_work'][rank]}")
+            check(max(b["work"]) <= 1.25 * statistics.mean(b["work"]), f"multihost {phase} bins {b['work']}")
+        log(f"multihost process {rank}: " + json.dumps({
+            "device": r["device"], "wall_s": r["wall_s"], "cold_wall_s": r["cold_wall_s"],
+            "walls_s": r["walls_s"], "exchange": r["exchange"],
+            "bins": {k: {f: v[f][rank] for f in v} for k, v in r["bins"].items()},
+            "lanes_run": {"literals": r["lit_lanes_run"], "sequences": r["seq_lanes_run"]},
+            "launches": r["launches"], "kernel_calls": r["kernel_calls"], "retry_lanes": r["retry_lanes"]}))
+    res = {"job_s": job_s, "walls_s": [r["wall_s"] for r in results], "cold_walls_s": [r["cold_wall_s"] for r in results],
+           "exchange": [r["exchange"] for r in results], "bins": results[0]["bins"]}
+    log("multihost: " + json.dumps(res))
+    return res
+
+
+def measure_phase(comp: bytes, raw: bytes, dev) -> dict:
+    """Phase 13: one decode with measure_phases, bit-exact, and its split."""
+    from zstd_tpu_torch import DeviceEngine
+
+    eng = DeviceEngine(device=dev)
+    eng.measure_phases = True
+    out = eng.decompress(comp)
+    check(out == raw, "measure_phases decode is not bit-exact")
+    check(eng.stats.fallback_frames == 0, eng.stats.fallback_reasons)
+    wall = eng.stats.wall_s
+    res = {k: wall[k] for k in ("dispatch", "upload_wait", "device_compute", "fetch", "prepass", "assembly", "total")}
+    # What the four phases and prepass and assembly leave: the host finish
+    # (unpacking every lane) and the wide retry.
+    res["rest"] = res["total"] - sum(res[k] for k in res if k != "total")
+    log("phase split (measure_phases): " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -737,6 +926,20 @@ def main() -> int:
     log(f"device LZ77 route vs default route, GB/s: level3_24MB {dev_main['gbs']:.4f} vs "
         f"{main['gbs']:.4f}; level19_8MiB {dev_hl['gbs']:.4f} vs {hl['gbs']:.4f}")
     cli_phase(hl_comp, hl_raw)
+
+    from zstd_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() == 1:
+        log("one CUDA card here: a mesh over real cards and launches on a second card are not run "
+            "(make_mesh() spans the one card)")
+    dev = torch.device("cuda", 0)
+    sharded = sharded_phase(comp, raw, {"all_cards": make_mesh(), "cuda0_x2": make_mesh(2, device="cuda:0")}, dev)
+    mh = multihost_phase(comp, raw, "cuda:0")
+    measure_phase(comp, raw, dev)
+    log("level3_24MB walls, s (medians; the default route from phase 4): default route "
+        f"{main['wall_s']:.4f}, one-plan route (all_cards) {sharded['all_cards']['wall_s']:.4f}, "
+        f"cuda0_x2 {sharded['cuda0_x2']['wall_s']:.4f}, multihost per process "
+        + ", ".join(f"{w:.4f}" for w in mh["walls_s"]))
 
     source = {
         "literals": ("zstd_tpu_torch/csrc/literals.cu", "zstd_tpu/kernels/pallas_lit.py:63"),

@@ -13,7 +13,10 @@ the compaction kernel at every frame group and at edge shapes, the LZ77
 copy-program kernel on the spike's program, on the combined corpus's
 frame programs, on the adversarial programs of ``testing.copy_program``
 and at positions just below 2^31; then checks the engine end to end, default and
-device-LZ77 routes, with every kernel launched.
+device-LZ77 routes, with every kernel launched; then the scale-out hooks:
+a ``[cuda:0] x 2`` mesh lane by lane against the single-device engine,
+``measure_phases``, and (where there are two cards) every wrapper on
+``cuda:1`` tensors while ``cuda:0`` is current, and a mesh over the cards.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
 from zstd_tpu_torch.runtime import engine
 from zstd_tpu_torch.testing import edge_lanes
 from zstd_tpu_torch.testing.copy_program import ADVERSARIAL, adversarial_programs, batch_programs, place_high
+from zstd_tpu_torch.testing.lanes import engine_lanes
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +231,69 @@ def test_device_lz77_route_on_card(dev):
     assert eng.decompress(data) == payload
     assert eng.stats.fallback_frames == 0, eng.stats.fallback_reasons
     assert lz77.exec_ops.launches > 0
+
+
+def test_sharded_engine_on_one_card_equals_single_device(dev):
+    # A [cuda:0] x 2 mesh: two launches a phase on one card, lane by lane
+    # equal to the single-device engine, before and after the wide retry.
+    from zstd_tpu_torch.testing.lanes import assert_lanes_equal
+    from zstd_tpu_torch.parallel.dist import ShardedEngine
+    from zstd_tpu_torch.parallel.mesh import make_mesh
+
+    data, payload = combined()
+    plan = build_batch_plan(data)
+    want = engine_lanes(engine.DeviceEngine(), plan)
+    eng = ShardedEngine(make_mesh(2, device="cuda:0"))
+    got = engine_lanes(eng, plan)
+    for g, w, what in zip(got, want, ("literals", "pre-retry sequences", "sequences")):
+        assert_lanes_equal(*g, *w, what)
+    assert eng.stats.mesh_calls[0] > 0 and eng.stats.mesh_calls[1] > 0
+    fns = (literals.decode_literals, sequences.decode_sequences, compact.compact_lanes)
+    for f in fns:
+        f.launches = 0
+    assert eng.decompress(data) == payload
+    assert eng.stats.fallback_frames == 0, eng.stats.fallback_reasons
+    assert literals.decode_literals.launches == 2 and compact.compact_lanes.launches == 2
+    assert eng.stats.retry_lanes == 1  # the overflow lane: one block, one wide launch
+    assert sequences.decode_sequences.launches == 3
+    assert sum(eng.stats.mesh_calls) == eng.stats.kernel_calls
+
+
+def test_measure_phases_exact_on_card(dev):
+    data, payload = combined()
+    eng = engine.DeviceEngine()
+    eng.measure_phases = True
+    assert eng.decompress(data) == payload
+    assert eng.stats.fallback_frames == 0, eng.stats.fallback_reasons
+    for key in ("dispatch", "upload_wait", "device_compute", "fetch", "total"):
+        assert eng.stats.wall_s[key] >= 0, key
+
+
+def test_wrappers_launch_on_their_tensors_card(dev):
+    # Tensors on cuda:1 while cuda:0 is current: each wrapper must launch
+    # on cuda:1 and equal its plain form; then a mesh over real cards.
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from zstd_tpu_torch.testing.lanes import assert_lanes_equal
+    from zstd_tpu_torch.parallel.dist import ShardedEngine
+    from zstd_tpu_torch.parallel.mesh import make_mesh
+
+    second = torch.device("cuda", 1)
+    plan = build_batch_plan(combined()[0])
+    with torch.cuda.device(0):
+        banks = engine.plan_to_device(plan, second)
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(second)  # noqa: E731
+        _idx, lit_mat, cum = engine.literal_lanes(plan)
+        _literals_match_plain(banks["words"], up(lit_mat), up(cum), [banks[k] for k in edge_lanes.HUFF_BANKS])
+        _idx, seq_mat, cumw = engine.sequence_lanes(plan)
+        _sequences_match_plain(banks["words"], up(seq_mat), [banks[k] for k in edge_lanes.FSE_BANKS],
+                               int(seq_mat[:, 3].max()))
+        _compact_matches_plain(banks, up(seq_mat), up(cumw))
+        ops, op_off, buf = adversarial_programs()["offset_below_len"]
+        ops, op_off, buf = ops.to(second), op_off.to(second), buf.to(second)
+        assert torch.equal(lz77.exec_ops(ops, op_off, buf.clone()), lz77.exec_ops_plain(ops, op_off, buf))
+        assert torch.cuda.current_device() == 0
+    want = engine_lanes(engine.DeviceEngine(), plan)
+    got = engine_lanes(ShardedEngine(make_mesh()), plan)
+    for g, w, what in zip(got, want, ("literals", "pre-retry sequences", "sequences")):
+        assert_lanes_equal(*g, *w, what)

@@ -1,15 +1,14 @@
-"""The PyTorch port's engine (``device="cpu"``) against the JAX engine.
+"""The PyTorch port's engine (``device="cpu"``) against the JAX package.
 
 Equal final bytes alone prove little — the oracle fallback turns a wrong
-kernel into right bytes — so the port is held to the JAX engine's
-lax.scan path lane by lane first: per-lane outputs and ok flags before
-and after the wide retry, on one plan of the ``tests/test_pallas.py``
-corpora (``torch_inputs``).  Then the final bytes with
-``fallback_frames == 0``, the multi-group pipeline with skippable frames
-at group boundaries, corrupt input, and a kernel-wrapper failure, which
-must propagate rather than fall back.  The device LZ77 route's assembly
-is held to the JAX engine's ``_assemble_frame_device`` frame by frame on
-the same plan and lane outputs.
+kernel into right bytes — so the port's engine is first held to the JAX
+engine's lax.scan path lane by lane (per-lane outputs and ok flags
+before and after the wide retry) and its device LZ77 route to the JAX
+engine's ``_assemble_frame_device`` frame by frame; those tests share one
+run of the JAX engine and live in ``test_torch_entropy.py``.  Here: the
+final bytes with ``fallback_frames == 0``, the multi-group pipeline with
+skippable frames at group boundaries, corrupt input, and a kernel-wrapper
+failure, which must propagate rather than fall back.
 """
 
 from __future__ import annotations
@@ -19,83 +18,14 @@ import pytest
 import torch
 
 import zstd_tpu_torch
-from torch_inputs import CORPORA, combined, jax_reference, skippable_groups
+from torch_inputs import CORPORA, combined, skippable_groups
 from zstd_tpu.runtime.oracle import decompress as jax_oracle_decompress
 from zstd_tpu.testing import libzstd
 from zstd_tpu.utils.errors import ZstdError as JaxZstdError
-from zstd_tpu_torch.format.block_table import build_batch_plan
 from zstd_tpu_torch.kernels import compact, literals, lz77, sequences
 from zstd_tpu_torch.runtime import engine as t_engine
 from zstd_tpu_torch.runtime.engine import DeviceEngine
 from zstd_tpu_torch.utils.errors import ZstdError
-
-
-@pytest.fixture(scope="module")
-def ref():
-    return jax_reference(combined()[0])
-
-
-def _assert_lanes_equal(got_outs, got_ok, want_outs, want_ok, what):
-    np.testing.assert_array_equal(got_ok, want_ok, err_msg=f"{what} ok flags")
-    assert len(got_outs) == len(want_outs)
-    for lane, (g, w) in enumerate(zip(got_outs, want_outs)):
-        if g is None or w is None:
-            assert g is None and w is None, f"{what} lane {lane}"
-            continue
-        if isinstance(w, tuple):
-            for k in range(3):
-                np.testing.assert_array_equal(g[k], w[k], err_msg=f"{what} lane {lane} field {k}")
-        else:
-            np.testing.assert_array_equal(g, w, err_msg=f"{what} lane {lane}")
-
-
-def test_lanes_match_jax_engine_before_and_after_retry(ref):
-    # The JAX plan goes to the port's engine as it is (plan_to_device is
-    # duck-typed on the plan's numpy fields).
-    plan = ref["plan"]
-    eng = DeviceEngine(device="cpu")
-    lit_outs, lit_ok, lp = eng._dispatch_literals(plan)
-    seq_outs, seq_ok, sp = eng._dispatch_sequences(plan)
-    eng._finish_literals(plan, lp, lit_outs, lit_ok)
-    eng._finish_sequences(plan, sp, seq_outs, seq_ok)
-    _assert_lanes_equal(lit_outs, lit_ok, ref["lit_outs"], ref["lit_ok"], "literals")
-    _assert_lanes_equal(
-        seq_outs, seq_ok, ref["pre"]["seq_outs"], ref["pre"]["seq_ok"], "pre-retry sequences"
-    )
-    assert not seq_ok.all()  # the overflow lane goes to the wide retry
-    eng._retry_sequences(plan, seq_outs, seq_ok)
-    assert eng.stats.retry_lanes == int((~ref["pre"]["seq_ok"]).sum())
-    _assert_lanes_equal(seq_outs, seq_ok, ref["seq_outs"], ref["seq_ok"], "sequences")
-
-
-def test_own_plan_drives_same_lanes(ref):
-    # The port's own prepass gives the same lanes as the JAX plan.
-    data = combined()[0]
-    eng = DeviceEngine(device="cpu")
-    (lit_outs, lit_ok), (seq_outs, seq_ok) = eng._run_both(build_batch_plan(data))
-    _assert_lanes_equal(lit_outs, lit_ok, ref["lit_outs"], ref["lit_ok"], "literals")
-    _assert_lanes_equal(seq_outs, seq_ok, ref["seq_outs"], ref["seq_ok"], "sequences")
-
-
-def test_device_lz77_assembly_matches_jax_frame_by_frame(ref):
-    # The JAX plan and the JAX engine's lane outputs go to both routes;
-    # JAX's pointer doubling runs op by op (no XLA compilation).
-    import jax
-
-    from zstd_tpu.runtime.engine import DeviceEngine as JaxEngine
-
-    plan = ref["plan"]
-    lanes = (ref["lit_outs"], ref["lit_ok"], ref["seq_outs"], ref["seq_ok"])
-    got = DeviceEngine(device="cpu", device_execute=True)._device_frames(plan, *lanes)
-    assert sorted(got) == list(range(len(plan.frames)))
-    jeng = JaxEngine(device_execute=True)
-    try:
-        with jax.disable_jit():
-            for i, fp in enumerate(plan.frames):
-                want = jeng._assemble_frame_device(fp, ref["lit_outs"], ref["seq_outs"])
-                assert bytes(got[i]) == want, f"frame {i}"
-    finally:
-        jeng.close()
 
 
 @pytest.mark.parametrize("name", [*CORPORA, "combined"])

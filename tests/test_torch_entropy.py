@@ -14,9 +14,15 @@ the port's counterparts:
 * the kernel wrappers on CPU tensors (``literals.decode_literals``,
   ``sequences.decode_sequences`` + ``pack_dense``,
   ``compact.compact_lanes``), i.e. the plain forms ``chip_smoke.py``
-  holds the CUDA kernels to on the card.
+  holds the CUDA kernels to on the card;
+* the port's engine (``device="cpu"``) on the same plan: per-lane
+  outputs and ok flags before and after the wide retry, from the JAX plan
+  and from its own; and its device LZ77 route frame by frame against the
+  JAX engine's ``_assemble_frame_device``.
 
-Integer codec: every comparison is exact (tolerance 0).
+One module holds every test of that JAX run, so the run (the suite's
+largest single cost, ~30-45 s op by op) happens once.  Integer codec:
+every comparison is exact (tolerance 0).
 """
 
 from __future__ import annotations
@@ -27,8 +33,11 @@ import torch
 
 import zstd_tpu.kernels.entropy2 as jax_e2
 from torch_inputs import combined, jax_reference
+from zstd_tpu_torch.format.block_table import build_batch_plan
 from zstd_tpu_torch.kernels import compact, literals, sequences
 from zstd_tpu_torch.kernels import entropy2 as t_e2
+from zstd_tpu_torch.runtime.engine import DeviceEngine
+from zstd_tpu_torch.testing.lanes import assert_lanes_equal
 
 
 def _t(a) -> torch.Tensor:
@@ -181,3 +190,56 @@ def test_pack_words_and_word_plane_match_jax(seed):
     np.testing.assert_array_equal(hi.numpy(), _u32(jhi))
     np.testing.assert_array_equal(plane.numpy(), _u32(jplane))
     np.testing.assert_array_equal(over.numpy(), np.asarray(jover))
+
+
+# -- the port's engine lane by lane against the JAX engine (one shared run
+# of the JAX engine, the ``ref`` fixture) ------------------------------------
+
+
+def test_lanes_match_jax_engine_before_and_after_retry(ref):
+    # The JAX plan goes to the port's engine as it is (plan_to_device is
+    # duck-typed on the plan's numpy fields).
+    plan = ref["plan"]
+    eng = DeviceEngine(device="cpu")
+    lit_outs, lit_ok, lp = eng._dispatch_literals(plan)
+    seq_outs, seq_ok, sp = eng._dispatch_sequences(plan)
+    eng._finish_literals(plan, lp, lit_outs, lit_ok)
+    eng._finish_sequences(plan, sp, seq_outs, seq_ok)
+    assert_lanes_equal(lit_outs, lit_ok, ref["lit_outs"], ref["lit_ok"], "literals")
+    assert_lanes_equal(
+        seq_outs, seq_ok, ref["pre"]["seq_outs"], ref["pre"]["seq_ok"], "pre-retry sequences"
+    )
+    assert not seq_ok.all()  # the overflow lane goes to the wide retry
+    eng._retry_sequences(plan, seq_outs, seq_ok)
+    assert eng.stats.retry_lanes == int((~ref["pre"]["seq_ok"]).sum())
+    assert_lanes_equal(seq_outs, seq_ok, ref["seq_outs"], ref["seq_ok"], "sequences")
+
+
+def test_own_plan_drives_same_lanes(ref):
+    # The port's own prepass gives the same lanes as the JAX plan.
+    data = combined()[0]
+    eng = DeviceEngine(device="cpu")
+    (lit_outs, lit_ok), (seq_outs, seq_ok) = eng._run_both(build_batch_plan(data))
+    assert_lanes_equal(lit_outs, lit_ok, ref["lit_outs"], ref["lit_ok"], "literals")
+    assert_lanes_equal(seq_outs, seq_ok, ref["seq_outs"], ref["seq_ok"], "sequences")
+
+
+def test_device_lz77_assembly_matches_jax_frame_by_frame(ref):
+    # The JAX plan and the JAX engine's lane outputs go to both routes;
+    # JAX's pointer doubling runs op by op (no XLA compilation).
+    import jax
+
+    from zstd_tpu.runtime.engine import DeviceEngine as JaxEngine
+
+    plan = ref["plan"]
+    lanes = (ref["lit_outs"], ref["lit_ok"], ref["seq_outs"], ref["seq_ok"])
+    got = DeviceEngine(device="cpu", device_execute=True)._device_frames(plan, *lanes)
+    assert sorted(got) == list(range(len(plan.frames)))
+    jeng = JaxEngine(device_execute=True)
+    try:
+        with jax.disable_jit():
+            for i, fp in enumerate(plan.frames):
+                want = jeng._assemble_frame_device(fp, ref["lit_outs"], ref["seq_outs"])
+                assert bytes(got[i]) == want, f"frame {i}"
+    finally:
+        jeng.close()

@@ -22,6 +22,71 @@ def level3_text() -> tuple[bytes, bytes]:
     return data, b"".join(payload[i::3] for i in range(3))
 
 
+def level3_small() -> tuple[bytes, bytes]:
+    """Three small level-3 frames (5-7 sequences a lane, two with
+    Huffman literals): level3_text's shape at a size whose lanes the JAX
+    engine decodes op by op in a few steps."""
+    rng = np.random.default_rng(5)
+    words = [b"alpha", b"beta", b"gamma", b"delta", b"omega", b"kappa", b"sigma", b"theta"]
+    parts, payload = [], b""
+    for i in range(3):
+        p = b" ".join(words[k] for k in rng.integers(0, 8, 10))
+        p += b" %d the quick brown fox jumps over the lazy dog" % i
+        parts.append(libzstd.compress(p, 3, checksum=True))
+        payload += p
+    return b"".join(parts), payload
+
+
+def overflow_match() -> tuple[bytes, bytes]:
+    """One small block of 8 sequences whose 5th copies a 70 000-byte
+    match: it overflows the narrow ml field, so its lane goes to the wide
+    retry, at a size the JAX engine decodes op by op in a few steps.  Its
+    few literals are stored raw, so it adds no literal lane."""
+    from zstd_tpu.encode import (
+        MAGIC_ZSTD,
+        _frame_header,
+        encode_literals_section,
+        encode_sequences_section,
+        offsets_to_values,
+    )
+
+    rng = np.random.default_rng(9)
+    lls = rng.integers(1, 4, 8).astype(np.int64)
+    lits = rng.integers(97, 123, int(lls.sum()), dtype=np.uint8)
+    mls = rng.integers(3, 12, 8).astype(np.int64)
+    mls[4] = 70_000
+    payload, offs, pos = bytearray(), [], 0
+    for ll, ml in zip(lls, mls):
+        payload += bytes(lits[pos : pos + ll])
+        pos += ll
+        offs.append(int(rng.integers(1, len(payload) + 1)))
+        for _ in range(ml):
+            payload.append(payload[-offs[-1]])
+    ofv = offsets_to_values(lls, np.asarray(offs), [1, 4, 8])
+    body = encode_literals_section(lits) + encode_sequences_section(lls, ofv, mls)
+    data = bytes(
+        MAGIC_ZSTD.to_bytes(4, "little")
+        + _frame_header(len(payload), False, False, 20)
+        + (1 | (2 << 1) | (len(body) << 3)).to_bytes(3, "little")
+        + bytes(body)
+    )
+    return data, bytes(payload)
+
+
+def many_lanes(n_frames: int = 48) -> tuple[bytes, bytes]:
+    """Many small level-3 frames, each with Huffman literal streams and a
+    sequence stream: enough lanes to split over processes and meshes."""
+    rng = np.random.default_rng(11)
+    parts, payload = [], b""
+    for _ in range(n_frames):
+        text = rng.integers(97, 123, int(rng.integers(1_500, 4_000)), dtype=np.uint8).tobytes()
+        page = rng.integers(0, 256, 256, dtype=np.uint8)
+        reps = b"".join((page + np.uint8(k)).tobytes() for k in rng.integers(0, 3, 8))
+        parts.append(libzstd.compress(text + reps, 3, checksum=True))
+        payload += text + reps
+    return b"".join(parts), payload
+
+
 def level19_repeat() -> tuple[bytes, bytes]:
     rng = np.random.default_rng(7)
     page = rng.bytes(2048)

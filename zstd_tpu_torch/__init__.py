@@ -13,9 +13,12 @@ Layout:
 * ``zstd_tpu_torch.ops``      — FSE/Huffman table builds, code tables, LZ77
 * ``zstd_tpu_torch.runtime``  — host oracle decoder, decoding context, engine
 * ``zstd_tpu_torch.kernels``  — CUDA kernel wrappers and their plain forms
+* ``zstd_tpu_torch.parallel`` — lanes split over a device mesh
+  (``ShardedEngine``, ``make_mesh``) and over the processes of a
+  ``torch.distributed`` job (``multihost.MultihostEngine``)
 * ``zstd_tpu_torch.native``   — ctypes bindings of the host C routines
 * ``zstd_tpu_torch.testing``  — libzstd oracle, the bench corpus, the
-  LZ77 spike's copy program
+  LZ77 spike's copy program, lane comparisons, a multi-process job
 * ``zstd_tpu_torch.cli``      — command line (``python -m zstd_tpu_torch.cli``)
 * ``zstd_tpu_torch.observability`` — run reports, ``torch.profiler`` hook
 * ``csrc/``                   — CUDA (``*.cu``) and host C sources

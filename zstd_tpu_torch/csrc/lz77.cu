@@ -178,14 +178,9 @@ __global__ void lz77_gather(const int* __restrict__ map, long long n_vec, int lo
     }
 }
 
-int grid_for(long long threads) {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (sms <= 0) sms = 132;
-    }
+// Blocks for a grid-stride loop over `threads`: every SM of the launch's card
+// full, and no more.
+int grid_for(long long threads, int sms) {
     const long long blocks = (threads + kThreads - 1) / kThreads;
     const long long cap = 8LL * sms;  // 2 048 threads an SM: every SM full
     return static_cast<int>(blocks < 1 ? 1 : (blocks < cap ? blocks : cap));
@@ -207,11 +202,20 @@ ZT_EXPORT int zt_lz77_exec(const void* ops, long long n_ops, const void* op_off,
     int* m = static_cast<int*>(map);
     int* f = static_cast<int*>(flags);
     const long long n_vec = n_map / 4;
-    lz77_init<<<grid_for(n_vec > rounds ? n_vec : rounds), kThreads, 0, s>>>(m, n_vec, f, rounds);
-    lz77_expand<<<grid_for(n_ops), kThreads, 0, s>>>(o, o + n_ops, o + 2 * n_ops, n_ops,
+    // The SM count of the current device, which the wrapper makes the
+    // buffer's: asked on every call, so each card gets its own.
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) {
+        cudaGetLastError();  // clear it: the error is returned here
+        return static_cast<int>(e);
+    }
+    lz77_init<<<grid_for(n_vec > rounds ? n_vec : rounds, sms), kThreads, 0, s>>>(m, n_vec, f, rounds);
+    lz77_expand<<<grid_for(n_ops, sms), kThreads, 0, s>>>(o, o + n_ops, o + 2 * n_ops, n_ops,
                                                      static_cast<const long long*>(op_off), n_progs,
                                                      lo, m);
-    for (int r = 0; r < rounds; ++r) lz77_jump<<<grid_for(n_vec), kThreads, 0, s>>>(m, n_vec, lo, f, r);
-    lz77_gather<<<grid_for(n_vec), kThreads, 0, s>>>(m, n_vec, lo, static_cast<uint8_t*>(buf));
+    for (int r = 0; r < rounds; ++r) lz77_jump<<<grid_for(n_vec, sms), kThreads, 0, s>>>(m, n_vec, lo, f, r);
+    lz77_gather<<<grid_for(n_vec, sms), kThreads, 0, s>>>(m, n_vec, lo, static_cast<uint8_t*>(buf));
     return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,11 @@ takes.  Each build keeps ``ptxas``'s resource report (``-Xptxas -v``:
 registers, shared memory, stack frame and spills of every kernel) in
 ``<name>.ptxas.txt`` beside the library (:func:`ptxas_report`).
 
+Builds run under a lock within a process; across processes (workers of
+a multi-process job building at first use) each ``nvcc`` writes a name of
+its own (the process id in it) that ``os.replace`` moves into place, so
+a reader finds either no library or a whole one.
+
 Every C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code.
@@ -77,7 +82,9 @@ def _finish(name: str, proc: subprocess.Popen, tmp: pathlib.Path) -> None:
     out, _ = proc.communicate(timeout=600)
     if proc.returncode != 0:
         raise KernelError(f"nvcc failed for {name}.cu:\n{out}")
-    _report_path(name).write_text(out)
+    report = _report_path(name).with_name(f"{name}.{os.getpid()}.tmp.txt")
+    report.write_text(out)
+    os.replace(report, _report_path(name))
     os.replace(tmp, _lib_path(name))
 
 
@@ -121,21 +128,24 @@ def ptxas_report(name: str) -> list[str]:
     return [ln.strip() for ln in lines if any(k in ln for k in keep)]
 
 
-def launch_info(name: str, n_lanes: int, wide: bool = False) -> dict:
+def launch_info(name: str, n_lanes: int, wide: bool = False, device=None) -> dict:
     """Launch geometry of a lane kernel (``literals``, ``sequences``; the
-    narrow or ``wide`` instance) for ``n_lanes`` lanes, with its compiled
-    resources from the CUDA runtime.  ``sms`` is the SMs the launch spreads over,
-    min(blocks, SM count): a block is one warp with a few KB of shared
+    narrow or ``wide`` instance) for ``n_lanes`` lanes on ``device`` (the
+    current CUDA device by default), with its compiled resources from the
+    CUDA runtime.  ``sms`` is the SMs the launch spreads over, min(blocks,
+    that card's SM count): a block is one warp with a few KB of shared
     memory, so every block of a launch is resident at once."""
     import torch
 
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
     lib = load(name)
     out = (ctypes.c_int * 6)()
     lib.zt_launch_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    check(lib, lib.zt_launch_info(n_lanes, int(wide), out), f"{name} launch info")
+    with torch.cuda.device(device):
+        check(lib, lib.zt_launch_info(n_lanes, int(wide), out), f"{name} launch info")
     keys = ("blocks", "threads", "dynamic_smem_bytes", "static_smem_bytes", "registers", "local_bytes")
     info = dict(zip(keys, out))
-    info["sms"] = min(info["blocks"], torch.cuda.get_device_properties(0).multi_processor_count)
+    info["sms"] = min(info["blocks"], torch.cuda.get_device_properties(device).multi_processor_count)
     return info
 
 

@@ -15,7 +15,8 @@ memory rate (each kept word read once and written once).  ``PERF.md``
 keeps its times.
 
 A wrapper handed CPU tensors runs the plain form; handed CUDA tensors it
-launches the kernel, and raises if the kernel cannot build or launch.
+launches the kernel on their card (that card made current around the C
+call), and raises if the kernel cannot build or launch.
 """
 
 from __future__ import annotations
@@ -57,9 +58,10 @@ def compact_lanes(plane, cum, *, n_dense: int):
     lib = _build.load("compact")
     fn = lib.zt_compact
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    code = fn(
-        plane.data_ptr(), rows, L, cum.data_ptr(), dense.data_ptr(), _build.stream_ptr(plane)
-    )
+    with torch.cuda.device(plane.device):
+        code = fn(
+            plane.data_ptr(), rows, L, cum.data_ptr(), dense.data_ptr(), _build.stream_ptr(plane)
+        )
     _build.check(lib, code, "compaction kernel")
     compact_lanes.launches += 1
     return dense

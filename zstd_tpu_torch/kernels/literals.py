@@ -13,7 +13,8 @@ symbols per u32 straight to the dense output.  Its times (~28 ns per
 symbol on an H100) and what holds it are in ``PERF.md``.
 
 A wrapper handed CPU tensors runs the plain form; handed CUDA tensors it
-launches the kernel, and raises if the kernel cannot build or launch.
+launches the kernel on their card (that card made current around the C
+call), and raises if the kernel cannot build or launch.
 """
 
 from __future__ import annotations
@@ -74,11 +75,12 @@ def decode_literals(words, lane_mat, cum, limits, prevs, lengths, rankb, ranked,
     lib = _build.load("literals")
     fn = lib.zt_literals
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    code = fn(
-        words.data_ptr(), words.numel(),
-        *(t.data_ptr() for t in args[1:]),
-        dense.data_ptr(), ok.data_ptr(), L, _build.stream_ptr(words),
-    )
+    with torch.cuda.device(words.device):
+        code = fn(
+            words.data_ptr(), words.numel(),
+            *(t.data_ptr() for t in args[1:]),
+            dense.data_ptr(), ok.data_ptr(), L, _build.stream_ptr(words),
+        )
     _build.check(lib, code, "literals kernel")
     decode_literals.launches += 1
     return dense, ok

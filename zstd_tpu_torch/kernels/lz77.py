@@ -29,7 +29,8 @@ agree on every program that meets the precondition — what a frame
 group's copy programs are.
 
 A wrapper handed CPU tensors runs the plain form; handed CUDA tensors it
-launches the kernel, and raises if the kernel cannot build or launch.
+launches the kernel on their card (that card made current around the C
+call), and raises if the kernel cannot build or launch.
 """
 
 from __future__ import annotations
@@ -143,11 +144,12 @@ def launch(ops, op_off, buf, lo: int, hi: int):
     lib = _build.load("lz77")
     fn = lib.zt_lz77_exec
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    code = fn(
-        ops.data_ptr(), ops.shape[1], op_off.data_ptr(), op_off.numel() - 1,
-        buf.data_ptr(), lo, n_map, scratch.data_ptr(), flags.data_ptr(), rounds,
-        _build.stream_ptr(buf),
-    )
+    with torch.cuda.device(buf.device):
+        code = fn(
+            ops.data_ptr(), ops.shape[1], op_off.data_ptr(), op_off.numel() - 1,
+            buf.data_ptr(), lo, n_map, scratch.data_ptr(), flags.data_ptr(), rounds,
+            _build.stream_ptr(buf),
+        )
     _build.check(lib, code, "lz77 kernel")
     exec_ops.launches += 1
     exec_ops.cuda_launches += rounds + 3

@@ -19,7 +19,8 @@ sum exceeds 32) with elementwise tensor ops, then compacts the word
 plane with the compaction kernel (``compact.py``).
 
 A wrapper handed CPU tensors runs the plain form; handed CUDA tensors it
-launches the kernel, and raises if the kernel cannot build or launch.
+launches the kernel on their card (that card made current around the C
+call), and raises if the kernel cannot build or launch.
 """
 
 from __future__ import annotations
@@ -81,13 +82,14 @@ def decode_sequences(words, lane_mat, bank_flat0, bank_flat1, bank_off, *, rows:
     lib = _build.load("sequences")
     fn = lib.zt_sequences
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    code = fn(
-        words.data_ptr(), words.numel(), lane_mat.data_ptr(),
-        bank_flat0.data_ptr(), bank_flat1.data_ptr(), bank_flat0.numel(),
-        bank_off.data_ptr(), rows, L, int(wide),
-        a.data_ptr(), b.data_ptr(), c.data_ptr() if wide else None, ok.data_ptr(),
-        _build.stream_ptr(words),
-    )
+    with torch.cuda.device(words.device):
+        code = fn(
+            words.data_ptr(), words.numel(), lane_mat.data_ptr(),
+            bank_flat0.data_ptr(), bank_flat1.data_ptr(), bank_flat0.numel(),
+            bank_off.data_ptr(), rows, L, int(wide),
+            a.data_ptr(), b.data_ptr(), c.data_ptr() if wide else None, ok.data_ptr(),
+            _build.stream_ptr(words),
+        )
     _build.check(lib, code, "sequences kernel")
     decode_sequences.launches += 1
     return (a, b, c, ok) if wide else (a, b, ok)

@@ -37,7 +37,8 @@ behind a slow relay):
   output planes are as tall as the group's longest lane and dense
   outputs are exactly as long as the real data.
 * **Fetch.** No relay fetch pool: outputs come back through pinned host
-  buffers (non-blocking copies) and one CUDA event per group.
+  buffers (non-blocking copies queued after the group's launches,
+  ``_fetch_pending``) and one CUDA event per group.
 * **Uploads.** The input words once per ``decompress``, the table banks
   once per group plan (``plan_to_device``), the per-lane columns once
   per launch.
@@ -48,6 +49,18 @@ behind a slow relay):
 
 The engine runs on ``cuda:0`` unless the caller passes another device;
 ``device="cpu"`` runs the kernels' plain PyTorch forms (the tests).
+
+Scale-out hooks (the JAX engine's, driven by ``parallel/``): a ``mesh``
+(``parallel.mesh.LaneMesh``) splits every launch's lane list into
+``mesh.size`` contiguous blocks, one launch per block on its device —
+the partition JAX's GSPMD gives the lane axis, done by hand; the words
+and table banks go to each distinct device once per plan.  ``subset``
+on ``_dispatch_literals``/``_dispatch_sequences`` and the
+``_run_*_wide`` methods decodes only those lanes (a process's bin in
+``parallel/multihost.py``).  ``measure_phases`` splits the one-plan
+route's wall (``_run_both``).  A mesh, a subclass with its own
+``_run_both`` or ``measure_phases`` takes the one-plan route: one
+``build_batch_plan`` of the whole input, then ``_run_both``.
 """
 
 from __future__ import annotations
@@ -135,6 +148,9 @@ class EngineStats:
     fallback_frames: int = 0
     fallback_reasons: list = field(default_factory=list)
     kernel_calls: int = 0
+    mesh_calls: list = field(default_factory=lambda: [0])  # launches by mesh position
+    lit_lanes_run: int = 0  # literal lanes launched (narrow pass)
+    seq_lanes_run: int = 0  # sequence lanes launched (narrow pass; the retry's not)
     retry_lanes: int = 0
     upload_bytes: int = 0
     fetch_bytes: int = 0
@@ -151,6 +167,9 @@ class EngineStats:
             "fallback_frames": self.fallback_frames,
             "fallback_reasons": list(self.fallback_reasons),
             "kernel_calls": self.kernel_calls,
+            "mesh_calls": list(self.mesh_calls),
+            "lit_lanes_run": self.lit_lanes_run,
+            "seq_lanes_run": self.seq_lanes_run,
             "retry_lanes": self.retry_lanes,
             "upload_bytes": self.upload_bytes,
             "fetch_bytes": self.fetch_bytes,
@@ -159,31 +178,86 @@ class EngineStats:
 
 
 class DeviceEngine:
-    """Batched decoder over one PyTorch device (a CUDA GPU by default)."""
+    """Batched decoder over one PyTorch device (a CUDA GPU by default), or
+    over the devices of a lane mesh."""
 
     def __init__(
-        self, *, max_window_size: int = MAX_WINDOW_SIZE, device=None, device_execute: bool = False
+        self,
+        *,
+        max_window_size: int = MAX_WINDOW_SIZE,
+        device=None,
+        device_execute: bool = False,
+        mesh=None,
     ):
         self.max_window_size = max_window_size
-        self.device = resolve_device(device)
+        # Optional parallel.mesh.LaneMesh: each launch's lanes split into
+        # mesh.size contiguous blocks, each launched on its mesh device.
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._placement: tuple[torch.device, ...] = (self.device,)
+        else:
+            if device is not None:
+                raise ValueError("DeviceEngine takes a device or a mesh, not both")
+            self._placement = tuple(resolve_device(d) for d in mesh.devices)
+            if not self._placement:
+                raise ValueError("DeviceEngine wants a mesh of at least one device")
+            self.device = self._placement[0]  # the device LZ77 route's card
         # Device LZ77 (the lz77 copy-program kernel) instead of the host C
         # executor; see kernels/lz77_device.py.
         self.device_execute = device_execute
-        self.stats = EngineStats()
-        self._words_dev: torch.Tensor | None = None
+        # When set, the one-plan _run_both splits its wall into dispatch /
+        # upload_wait / device_compute / fetch (stats.wall_s, the JAX
+        # engine's keys): a measurement mode whose barriers stop the copies
+        # from overlapping the kernels, so leave it off in production.
+        self.measure_phases = False
+        self.stats = self._new_stats()
+        self._words_dev: dict = {}
         self._dev_cache: tuple | None = None
+        self._upload_marks: dict = {}  # measure_phases: device -> event after its last upload
+
+    def _new_stats(self) -> EngineStats:
+        return EngineStats(mesh_calls=[0] * len(self._placement))
+
+    def _devices(self) -> list[torch.device]:
+        """The distinct devices of the placement, in mesh order."""
+        return list(dict.fromkeys(self._placement))
+
+    def _blocks(self, n: int) -> list[tuple[int, torch.device, slice]]:
+        """(mesh position, device, lanes) of each launch over ``n`` lanes:
+        contiguous blocks of ceil(n / mesh size) lanes, the partition GSPMD
+        gives the lane axis; blocks without lanes are left out."""
+        step = -(-n // len(self._placement))
+        return [
+            (i, dev, slice(i * step, min(n, (i + 1) * step)))
+            for i, dev in enumerate(self._placement)
+            if i * step < n
+        ]
+
+    def _count(self, pos: int) -> None:
+        self.stats.kernel_calls += 1
+        self.stats.mesh_calls[pos] += 1
 
     # -- transfers ----------------------------------------------------------
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
+    def _upload(self, a: np.ndarray, device: torch.device) -> torch.Tensor:
         t = _i32(a)
         self.stats.upload_bytes += t.numel() * 4
-        return t.to(self.device, non_blocking=True)
+        out = t.to(device, non_blocking=True)
+        if self.measure_phases:
+            self._mark_upload(device)
+        return out
+
+    def _mark_upload(self, device) -> None:
+        if device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(device))
+            self._upload_marks[device] = ev
 
     def _to_host(self, ts: list[torch.Tensor]) -> list[torch.Tensor]:
         """Start copying device outputs into pinned host buffers (the
-        caller waits on the group's event before reading them)."""
-        if self.device.type == "cpu":
+        caller waits on the group's events before reading them)."""
+        if ts[0].device.type == "cpu":
             return ts
         out = []
         for t in ts:
@@ -192,20 +266,33 @@ class DeviceEngine:
             out.append(h)
         return out
 
-    def _record_event(self):
-        if self.device.type == "cpu":
-            return None
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        return ev
+    def _fetch_pending(self, pending: list[tuple]) -> list[tuple]:
+        """A dispatch's pending entries with their outputs' copies to
+        pinned host buffers queued (``_to_host``)."""
+        return [(idx, cum, self._to_host(ts)) for idx, cum, ts in pending]
 
-    def _plan_dev(self, plan) -> dict:
-        """Per-plan device residents (``plan_to_device``), sharing the
-        words uploaded at decompress entry."""
+    def _record_events(self) -> list:
+        """One CUDA event per distinct device, after the work queued so far
+        on its current stream (none on the CPU)."""
+        evs = []
+        for dev in self._devices():
+            if dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                evs.append(ev)
+        return evs
+
+    def _plan_dev(self, plan, dev: torch.device) -> dict:
+        """Per-plan device residents (``plan_to_device``) on ``dev``,
+        sharing the words uploaded there at decompress entry: one copy a
+        distinct device a plan."""
         if self._dev_cache is None or self._dev_cache[0] is not plan:
-            words = self._words_dev
+            self._dev_cache = (plan, {})
+        banks = self._dev_cache[1]
+        if dev not in banks:
+            words = self._words_dev.get(dev)
             if words is None:
-                words = self._upload(plan.words)
+                words = self._upload(plan.words, dev)
             self.stats.upload_bytes += sum(
                 int(np.asarray(a).nbytes)
                 for a in (
@@ -213,61 +300,70 @@ class DeviceEngine:
                     plan.huff_prevs, plan.huff_lengths, plan.huff_rankb, plan.huff_ranked,
                 )
             )
-            self._dev_cache = (plan, plan_to_device(plan, self.device, words=words))
-        return self._dev_cache[1]
+            banks[dev] = plan_to_device(plan, dev, words=words)
+            if self.measure_phases:
+                self._mark_upload(dev)
+        return banks[dev]
 
     # -- kernel dispatch ------------------------------------------------------
 
-    def _dispatch_literals(self, plan: BatchPlan):
-        """One literals launch over every lane with symbols to decode.
+    def _dispatch_literals(self, plan: BatchPlan, subset=None):
+        """One literals launch over every lane with symbols to decode (one
+        a mesh block).  ``subset``: decode only these lane indices (a
+        process's bin, parallel/multihost.py).
 
-        Returns (outs, ok, pending): lanes without work stay (None,
-        ok=True); pending holds (lane indices, cum, host outputs)."""
+        Returns (outs, ok, pending): lanes without work or outside the
+        subset stay (None, ok=True); pending holds (lane indices, cum,
+        device outputs), one entry a launch, for ``_fetch_pending``."""
         n = plan.n_lit_lanes
         outs: list[np.ndarray | None] = [None] * n
         ok = np.ones(n, dtype=bool)
         pending: list[tuple] = []
-        idx, lane_mat, cum = literal_lanes(plan)
-        if not idx.size:
-            return outs, ok, pending
-        dev = self._plan_dev(plan)
-        dense, lane_ok = lit_kernel.decode_literals(
-            dev["words"],
-            self._upload(lane_mat),
-            self._upload(cum),
-            dev["limits"],
-            dev["prevs"],
-            dev["lengths"],
-            dev["rankb"],
-            dev["ranked"],
-            n_dense=int(cum[-1]),
-        )
-        self.stats.kernel_calls += 1
-        pending.append((idx, cum, self._to_host([dense, lane_ok])))
+        idx, lane_mat, cum = literal_lanes(plan, subset)
+        for pos, dev, s in self._blocks(len(idx)):
+            c = cum[s.start : s.stop + 1] - cum[s.start]
+            banks = self._plan_dev(plan, dev)
+            dense, lane_ok = lit_kernel.decode_literals(
+                banks["words"],
+                self._upload(lane_mat[s], dev),
+                self._upload(c, dev),
+                banks["limits"],
+                banks["prevs"],
+                banks["lengths"],
+                banks["rankb"],
+                banks["ranked"],
+                n_dense=int(c[-1]),
+            )
+            self._count(pos)
+            self.stats.lit_lanes_run += s.stop - s.start
+            pending.append((idx[s], c, [dense, lane_ok]))
         return outs, ok, pending
 
-    def _dispatch_sequences(self, plan: BatchPlan):
-        """One narrow sequences launch over every lane, then the word
-        packing and one compaction launch.  Returns (outs, ok, pending)."""
+    def _dispatch_sequences(self, plan: BatchPlan, subset=None):
+        """One narrow sequences launch over every lane with sequences (one
+        a mesh block), then the word packing and one compaction launch.
+        ``subset`` as for literals.  Returns (outs, ok, pending)."""
         n = plan.n_seq_lanes
         outs: list[tuple | None] = [None] * n
         ok = np.ones(n, dtype=bool)
         pending: list[tuple] = []
-        idx, lane_mat_np, cumw = sequence_lanes(plan)
-        if not idx.size:
-            return outs, ok, pending
-        lane_mat = self._upload(lane_mat_np)
-        dev = self._plan_dev(plan)
-        da, db, lane_ok = seq_kernel.decode_sequences(
-            dev["words"], lane_mat, dev["fse_flat0"], dev["fse_flat1"], dev["fse_off"],
-            rows=int(lane_mat_np[:, 3].max()),
-        )
-        dense, over = seq_kernel.pack_dense(
-            da, db, lane_mat, self._upload(cumw), n_dense_w=int(cumw[-1])
-        )
-        self.stats.kernel_calls += 1
-        ok_t = ((lane_ok != 0) & ~over).to(torch.int32)
-        pending.append((idx, cumw, self._to_host([dense, ok_t])))
+        idx, lane_mat_np, cumw = sequence_lanes(plan, subset)
+        for pos, dev, s in self._blocks(len(idx)):
+            m = lane_mat_np[s]
+            c = cumw[s.start : s.stop + 1] - cumw[s.start]
+            lane_mat = self._upload(m, dev)
+            banks = self._plan_dev(plan, dev)
+            da, db, lane_ok = seq_kernel.decode_sequences(
+                banks["words"], lane_mat, banks["fse_flat0"], banks["fse_flat1"], banks["fse_off"],
+                rows=int(m[:, 3].max()),
+            )
+            dense, over = seq_kernel.pack_dense(
+                da, db, lane_mat, self._upload(c, dev), n_dense_w=int(c[-1])
+            )
+            self._count(pos)
+            self.stats.seq_lanes_run += s.stop - s.start
+            ok_t = ((lane_ok != 0) & ~over).to(torch.int32)
+            pending.append((idx[s], c, [dense, ok_t]))
         return outs, ok, pending
 
     # -- host finish ----------------------------------------------------------
@@ -330,34 +426,92 @@ class DeviceEngine:
         nseq = plan.seq_nseq[failed].astype(np.int32)
         zero = np.zeros(len(failed), dtype=np.int32)
         lane_mat = _seq_lane_mat(plan, failed, nseq, zero, zero, zero)
-        dev = self._plan_dev(plan)
-        res = seq_kernel.decode_sequences(
-            dev["words"], self._upload(lane_mat), dev["fse_flat0"], dev["fse_flat1"],
-            dev["fse_off"], rows=int(nseq.max()), wide=True,
-        )
-        self.stats.kernel_calls += 1
-        pa, vll, vml, lane_ok = (t.cpu().numpy() for t in res)
-        self.stats.fetch_bytes += pa.nbytes + vll.nbytes + vml.nbytes + lane_ok.nbytes
-        pa = np.ascontiguousarray(pa.view(np.uint32).T)
-        valid = (pa >> 31).astype(bool)
-        ofv = pa & np.uint32(0x7FFFFFFF)
-        vll, vml = vll.T, vml.T
+        launched = []
+        for pos, dev, s in self._blocks(len(failed)):
+            banks = self._plan_dev(plan, dev)
+            res = seq_kernel.decode_sequences(
+                banks["words"], self._upload(lane_mat[s], dev), banks["fse_flat0"],
+                banks["fse_flat1"], banks["fse_off"], rows=int(nseq[s].max()), wide=True,
+            )
+            self._count(pos)
+            launched.append((failed[s], res))
         ok[failed] = True
-        for j, lane in enumerate(failed):
-            mask = valid[j]
-            ns = plan.seq_nseq[lane]
-            lls = vll[j][mask][:ns]
-            outs[lane] = (lls, ofv[j][mask][:ns], vml[j][mask][:ns])
-            ok[lane] = bool(lane_ok[j]) and len(lls) == ns
+        for lanes, res in launched:
+            pa, vll, vml, lane_ok = (t.cpu().numpy() for t in res)
+            self.stats.fetch_bytes += pa.nbytes + vll.nbytes + vml.nbytes + lane_ok.nbytes
+            pa = np.ascontiguousarray(pa.view(np.uint32).T)
+            valid = (pa >> 31).astype(bool)
+            ofv = pa & np.uint32(0x7FFFFFFF)
+            vll, vml = vll.T, vml.T
+            for j, lane in enumerate(lanes):
+                mask = valid[j]
+                ns = plan.seq_nseq[lane]
+                lls = vll[j][mask][:ns]
+                outs[lane] = (lls, ofv[j][mask][:ns], vml[j][mask][:ns])
+                ok[lane] = bool(lane_ok[j]) and len(lls) == ns
+
+    def _run_literals(self, plan: BatchPlan):
+        return self._run_literals_wide(plan)
+
+    def _run_sequences(self, plan: BatchPlan):
+        return self._run_sequences_wide(plan)
+
+    def _run_literals_wide(self, plan: BatchPlan, subset=None):
+        """The literals phase alone over ``subset`` (every lane by
+        default): dispatch, wait, finish.  Returns (outs, ok)."""
+        outs, ok, pending = self._dispatch_literals(plan, subset)
+        pending = self._fetch_pending(pending)
+        _wait(self._record_events())
+        self._finish_literals(plan, pending, outs, ok)
+        return outs, ok
+
+    def _run_sequences_wide(self, plan: BatchPlan, subset=None):
+        """The sequences phase alone over ``subset``: dispatch, wait,
+        finish, then the wide retry of the subset's failed lanes (lanes
+        outside it stay ok).  Returns (outs, ok)."""
+        outs, ok, pending = self._dispatch_sequences(plan, subset)
+        pending = self._fetch_pending(pending)
+        _wait(self._record_events())
+        self._finish_sequences(plan, pending, outs, ok)
+        self._retry_sequences(plan, outs, ok)
+        return outs, ok
 
     def _run_both(self, plan: BatchPlan):
         """Both phases over one plan, finished and retried:
-        ((lit_outs, lit_ok), (seq_outs, seq_ok))."""
+        ((lit_outs, lit_ok), (seq_outs, seq_ok)).  Every launch of both
+        phases is queued before the first wait.
+
+        With ``measure_phases`` the wall splits into ``stats.wall_s``
+        ``dispatch`` (host time queueing uploads and launches),
+        ``upload_wait`` (until an event recorded after each device's last
+        upload fires), ``device_compute`` (until an event after the last
+        launch fires) and ``fetch`` (the pinned device-to-host copies,
+        issued only after that barrier).  Uploads interleave with the
+        launches on each stream, so the last upload's event also waits for
+        the launches queued before it: ``upload_wait`` is an upper bound
+        on the upload share and ``device_compute`` a lower bound on the
+        kernels', as in the JAX engine."""
+        measure = self.measure_phases
+        self._upload_marks = {}
+        t0 = time.perf_counter()
         lit_outs, lit_ok, lp = self._dispatch_literals(plan)
         seq_outs, seq_ok, sp = self._dispatch_sequences(plan)
-        ev = self._record_event()
-        if ev is not None:
-            ev.synchronize()
+        if measure:
+            launched = self._record_events()
+            t1 = time.perf_counter()
+            _wait(self._upload_marks.values())
+            tu = time.perf_counter()
+            _wait(launched)
+            t2 = time.perf_counter()
+        lp, sp = self._fetch_pending(lp), self._fetch_pending(sp)
+        _wait(self._record_events())
+        if measure:
+            self.stats.wall_s.update(
+                dispatch=t1 - t0,
+                upload_wait=tu - t1,
+                device_compute=t2 - tu,
+                fetch=time.perf_counter() - t2,
+            )
         self._finish_literals(plan, lp, lit_outs, lit_ok)
         self._finish_sequences(plan, sp, seq_outs, seq_ok)
         self._retry_sequences(plan, seq_outs, seq_ok)
@@ -449,9 +603,7 @@ class DeviceEngine:
         lz77_kernel.exec_ops(ops, op_off, buf)
         self.stats.kernel_calls += 1
         (host,) = self._to_host([buf])
-        ev = self._record_event()
-        if ev is not None:
-            ev.synchronize()
+        _wait(self._record_events())
         flat = memoryview(host.numpy())
         self.stats.fetch_bytes += flat.nbytes
         for i, (start, n) in zip(idx, gp.outs):
@@ -527,10 +679,10 @@ class DeviceEngine:
             self._pipeline_parse_s += time.perf_counter() - tp
             lit_outs, lit_ok, lp = self._dispatch_literals(plan)
             seq_outs, seq_ok, sp = self._dispatch_sequences(plan)
-            staged.append((plan, lit_outs, lit_ok, seq_outs, seq_ok, lp, sp, self._record_event()))
-        for plan, lit_outs, lit_ok, seq_outs, seq_ok, lp, sp, ev in staged:
-            if ev is not None:
-                ev.synchronize()
+            lp, sp = self._fetch_pending(lp), self._fetch_pending(sp)
+            staged.append((plan, lit_outs, lit_ok, seq_outs, seq_ok, lp, sp, self._record_events()))
+        for plan, lit_outs, lit_ok, seq_outs, seq_ok, lp, sp, evs in staged:
+            _wait(evs)
             self._finish_literals(plan, lp, lit_outs, lit_ok)
             self._finish_sequences(plan, sp, seq_outs, seq_ok)
             self._retry_sequences(plan, seq_outs, seq_ok)
@@ -543,34 +695,43 @@ class DeviceEngine:
         verify_checksum: bool = True,
         include_skippable: bool = False,
     ) -> bytes:
-        stats = self.stats = EngineStats()
+        stats = self.stats = self._new_stats()
         stats.bytes_in = len(data)
         self._dev_cache = None
 
         t0 = time.perf_counter()
         words = input_words(data)
-        self._words_dev = self._upload(words)
+        self._words_dev = {dev: self._upload(words, dev) for dev in self._devices()}
         out = bytearray()
         asm_s = 0.0
         done = False
-        snap = (stats.frames, stats.blocks, stats.fallback_frames)
-        try:
-            for g in self._iter_pipelined(data, words):
-                ta = time.perf_counter()
-                self._assemble_group(
-                    *g, out=out, verify_checksum=verify_checksum,
-                    include_skippable=include_skippable,
-                )
-                asm_s += time.perf_counter() - ta
-            prepass_s = self._pipeline_parse_s
-            done = True
-        except ZstdError as e:
-            _log.warning("pipelined decode failed, replanning: %r", e)
-            stats.fallback_reasons.append(f"pipelined: {e!r}")
-            out = bytearray()
-            asm_s = 0.0
-            stats.frames, stats.blocks, stats.fallback_frames = snap
-            stats.lit_lanes = stats.seq_lanes = 0
+        # The frame-group pipeline runs on one device, outside measure mode,
+        # for this class's own _run_both: a mesh, measure_phases and the
+        # multi-process engine (whose exchanges every process must enter in
+        # the same order, on the same plan) take the one-plan route.
+        if (
+            self.mesh is None
+            and type(self)._run_both is DeviceEngine._run_both
+            and not self.measure_phases
+        ):
+            snap = (stats.frames, stats.blocks, stats.fallback_frames)
+            try:
+                for g in self._iter_pipelined(data, words):
+                    ta = time.perf_counter()
+                    self._assemble_group(
+                        *g, out=out, verify_checksum=verify_checksum,
+                        include_skippable=include_skippable,
+                    )
+                    asm_s += time.perf_counter() - ta
+                prepass_s = self._pipeline_parse_s
+                done = True
+            except ZstdError as e:
+                _log.warning("pipelined decode failed, replanning: %r", e)
+                stats.fallback_reasons.append(f"pipelined: {e!r}")
+                out = bytearray()
+                asm_s = 0.0
+                stats.frames, stats.blocks, stats.fallback_frames = snap
+                stats.lit_lanes = stats.seq_lanes = 0
         if not done:
             tp = time.perf_counter()
             plan = build_batch_plan(data, max_window_size=self.max_window_size, words=words)
@@ -591,7 +752,7 @@ class DeviceEngine:
             )
             asm_s = time.perf_counter() - ta
         t3 = time.perf_counter()
-        self._words_dev = None
+        self._words_dev = {}
         self._dev_cache = None
 
         stats.bytes_out = len(out)
@@ -621,11 +782,22 @@ def frame_groups(data, max_window_size: int = MAX_WINDOW_SIZE):
         yield frames
 
 
-def literal_lanes(plan):
+def _lanes_with_work(counts: np.ndarray, subset) -> np.ndarray:
+    """Indices of the lanes with a count above 0, within ``subset`` when
+    one is given, ascending."""
+    work = counts > 0
+    if subset is not None:
+        mask = np.zeros(len(counts), dtype=bool)
+        mask[np.asarray(subset, dtype=np.int64)] = True
+        work &= mask
+    return np.flatnonzero(work)
+
+
+def literal_lanes(plan, subset=None):
     """The literals launch's host inputs: (lane indices, lane_mat int32[L,
     5] of entropy2.LIT_LANE_COLS, cum int32[L + 1] of ceil(regen / 4)),
-    over every lane with symbols to decode."""
-    idx = np.flatnonzero(plan.lit_regen > 0)
+    over every lane with symbols to decode (within ``subset``)."""
+    idx = _lanes_with_work(plan.lit_regen, subset)
     regen = plan.lit_regen[idx].astype(np.int32)
     cum = np.zeros(len(idx) + 1, dtype=np.int32)
     np.cumsum(-(-regen // 4), out=cum[1:])
@@ -674,11 +846,11 @@ def _seq_lane_mat(plan, sel, nseq, w_ll, w_ml, w_of) -> np.ndarray:
     ).astype(np.int32)
 
 
-def sequence_lanes(plan):
+def sequence_lanes(plan, subset=None):
     """The narrow sequences launch's host inputs: (lane indices, lane_mat
     int32[L, 13] of entropy2.SEQ_LANE_COLS, cumw int32[L + 1] of packed
-    word counts), over every lane with sequences."""
-    idx = np.flatnonzero(plan.seq_nseq > 0)
+    word counts), over every lane with sequences (within ``subset``)."""
+    idx = _lanes_with_work(plan.seq_nseq, subset)
     nseq = plan.seq_nseq[idx].astype(np.int32)
     w_ll, w_ml, w_of, cumw = _seq_pack_meta(plan, idx, nseq)
     return idx, _seq_lane_mat(plan, idx, nseq, w_ll, w_ml, w_of), cumw
@@ -701,6 +873,11 @@ def group_program(plan, lit_outs, lit_ok, seq_outs, seq_ok):
         except ZstdError as e:
             errors[i] = e
     return (lz77_device.pack_programs(progs) if progs else None), idx, errors
+
+
+def _wait(events) -> None:
+    for ev in events:
+        ev.synchronize()
 
 
 def _frame_lanes_ok(fp: FramePlan, lit_ok: np.ndarray, seq_ok: np.ndarray) -> bool:
