@@ -73,7 +73,9 @@ Phases, each fatal on failure (no phase's error is caught):
    a second card are not run.
 12. Multihost: two worker processes (``testing/multihost_job.py``) join a
    gloo group on 127.0.0.1, each decodes the level-3 corpus with
-   ``MultihostEngine`` on ``cuda:0``: both bit-exact with one SHA-256, each
+   ``MultihostEngine`` on its own card (the runner names no device, so
+   rank r resolves ``cuda:{r mod the card count}`` through
+   ``multihost.rank_device``; both on ``cuda:0`` with one card): both bit-exact with one SHA-256, each
    with kernels launched over its own bin only and no oracle fallback,
    bins balanced within 25%; each process's bins, the bytes and seconds
    of its two exchanges, and its walls (its first decode, then the median
@@ -82,6 +84,30 @@ Phases, each fatal on failure (no phase's error is caught):
 13. Phase split: one decode with ``measure_phases``: bit-exact, and the
    split dispatch / upload_wait / device_compute / fetch beside the total
    (and what prepass, assembly and the four leave: the host finish).
+14. The port's encoder: the corpus's first 8 MiB compressed by
+   ``zstd_tpu_torch.compress`` as two 4 MiB frames with checksums at
+   levels 1, 3 and 19 (one encode a worker process, all at once); per
+   level the encode MB/s of one host thread and the size against
+   libzstd's at the same level; libzstd decodes each to the raw bytes;
+   then ``DeviceEngine()`` on both routes with every count set to 0
+   just before and read just after: bit-exact, no oracle fallback, every
+   kernel the plans need launched (all three lane kernels at levels 3
+   and 19; level-1 frames may hold raw literals only), and the wall,
+   median of 3; the
+   level-19 input (one frame group) lane by lane against the plain
+   forms (a CPU worker process, tolerance 0).
+15. Corrupt input on the card: seeded bit flips (64 sets of 1-4, past
+   the frame header) and 16 truncations of a 256 KiB level-3 libzstd
+   frame and a 256 KiB level-19 port-made frame, each through
+   ``DeviceEngine`` on both routes with a synchronisation after each,
+   held to the host oracle (the same bytes, or a ``ZstdError`` where it
+   raises one), with each route's launches by kernel and the number of
+   inputs that reached a kernel (at least one on each route); four of
+   the flipped inputs whose prepass succeeds lane
+   by lane against the plain forms (CPU worker processes); then the
+   fuzz harness, ``python -m zstd_tpu_torch.testing.fuzz --engine
+   --iterations 100 --seed 0``, on the card.  Any other exception, other
+   bytes or a CUDA error fails the run.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -104,6 +130,7 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor peak, the table's float32 rate
 # loops (csrc/literals.cu per symbol, csrc/sequences.cu per sequence).
 LIT_OPS_PER_SYMBOL = 40
 SEQ_OPS_PER_SEQUENCE = 150
+PROFILE_TRIES = 3  # traces taken before a profiled kernel counts as missing
 
 
 def log(msg: str) -> None:
@@ -395,27 +422,45 @@ def profiled_kernels(run, key: str, reps: int = 1) -> tuple[dict, int, list]:
     """Device milliseconds per call of ``run`` by CUDA kernel whose name
     holds ``key`` (the name's part after ``key``; every device event for
     an empty key), over ``reps`` calls, the launches per call, and each
-    launch's milliseconds in order, from ``torch.profiler``."""
+    launch's milliseconds in order, from ``torch.profiler``.  A trace can
+    come back without the device events of a window this short (CUPTI
+    flushes its activity buffers late), so a trace that holds no kernel
+    of ``key`` is taken again, up to ``PROFILE_TRIES`` times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
     name = lambda k: k.split(key, 1)[1].split("(", 1)[0] if key else k  # noqa: E731
-    split, launches = {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and key in ev.key:
-            split[name(ev.key)] = ev.self_device_time_total / 1e3 / reps
-            launches += ev.count
-    check(split, f"profile: no {key} kernel on the device")
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        split, launches = {}, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and key in ev.key:
+                split[name(ev.key)] = ev.self_device_time_total / 1e3 / reps
+                launches += ev.count
+        if split:
+            break
+        log(f"profile: trace {attempt} of {PROFILE_TRIES} holds no {key or 'device'} kernel")
+    check(split, f"profile: no {key} kernel on the device in {PROFILE_TRIES} traces")
     each = sorted((ev.time_range.start, name(ev.key), ev.time_range.elapsed_us() / 1e3)
                   for ev in prof.events() if ev.device_type == DeviceType.CUDA and key in ev.key)
     return split, launches // reps, [(n, ms) for _t, n, ms in each]
+
+
+def profiler_warm_up() -> None:
+    """Start the profiler's CUDA tracing before the first trace that is
+    read: the first trace of a process is the one that can lose its
+    device events while CUPTI starts.  Traces a fill of a small tensor
+    until one trace holds its kernel."""
+    import torch
+
+    x = torch.empty(1 << 20, device="cuda")
+    profiled_kernels(lambda: x.fill_(1.0), "", 4)
 
 
 def lz77_device_split(run) -> dict:
@@ -570,8 +615,28 @@ def device_route_split(comp: bytes, dev) -> None:
                                                   "ms": steps, "total_ms": (t[-1] - t[0]) * 1e3}))
 
 
-def end_to_end(name: str, comp: bytes, raw: bytes, device_execute: bool = False) -> dict:
-    """Phases 4-5 and 9: a route once with counts from 0, then timed runs."""
+def kernels_needed(comp: bytes, device_execute: bool = False) -> set:
+    """The kernels the engine's plans of ``comp`` give work: literals where
+    a literal lane has symbols, sequences and compaction where a sequence
+    lane has sequences, LZ77 on the device route."""
+    from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
+    from zstd_tpu_torch.runtime.engine import frame_groups
+
+    words = input_words(comp)
+    need = {"lz77"} if device_execute else set()
+    for frames in frame_groups(comp):
+        plan = build_batch_plan(comp, words=words, frames=frames)
+        if (plan.lit_regen > 0).any():
+            need.add("literals")
+        if (plan.seq_nseq > 0).any():
+            need |= {"sequences", "compact"}
+    return need
+
+
+def end_to_end(name: str, comp: bytes, raw: bytes, device_execute: bool = False, need=None) -> dict:
+    """Phases 4-5, 9 and 14: a route once with counts from 0, then timed
+    runs.  Every kernel of the route must launch, or with ``need`` (phase
+    14, from ``kernels_needed``) every kernel named there."""
     import torch
 
     from zstd_tpu_torch import DeviceEngine
@@ -590,7 +655,8 @@ def end_to_end(name: str, comp: bytes, raw: bytes, device_execute: bool = False)
     stats = eng.stats.as_dict()
     check(out == raw, f"{name}: decode is not bit-exact")
     check(stats["fallback_frames"] == 0, stats["fallback_reasons"])
-    check(all(v > 0 for v in launches.values()), f"{name}: a kernel never launched: {launches}")
+    need = set(fns) if need is None else need
+    check(all(launches[k] > 0 for k in need), f"{name}: a kernel never launched: {launches}, needed {need}")
     groups = sum(1 for _ in frame_groups(comp))
     if device_execute:
         check(launches["lz77"] == groups, f"{name}: {launches['lz77']} lz77 launches, {groups} groups")
@@ -657,11 +723,17 @@ def profile_phase(comp: bytes, wall_s: float, kres: dict) -> dict:
 
     eng = DeviceEngine()
     eng.decompress(comp)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.decompress(comp)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
+    keys = (("literals", "literals_kernel"), ("sequences", "sequences_kernel<false>"))
+    for attempt in range(1, PROFILE_TRIES + 1):  # as in profiled_kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.decompress(comp)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        seen = {ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
+        if all(any(key in k for k in seen) for _name, key in keys):
+            break
+        log(f"profile: trace {attempt} of {PROFILE_TRIES} lacks a lane kernel")
     # Device-side events only (kernels, copies): a host op's entry also
     # carries the device time of what it launched.
     dev_ms = {
@@ -674,7 +746,7 @@ def profile_phase(comp: bytes, wall_s: float, kres: dict) -> dict:
     res = {"device_busy_ms": busy, "profiled_wall_s": prof_wall, "wall_s": wall_s,
            "idle_share": (1 - busy / 1e3 / wall_s) if busy else None, "top_device_ms": top}
     log("profile: " + json.dumps(res))
-    for name, key in (("literals", "literals_kernel"), ("sequences", "sequences_kernel<false>")):
+    for name, key in keys:
         evs = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA and key in ev.key and ev.count]
         check(len(evs) == 1, f"profile: {len(evs)} device entries for {key}")
@@ -819,10 +891,14 @@ def sharded_phase(comp: bytes, raw: bytes, meshes: dict, dev) -> dict:
     return out
 
 
-def multihost_phase(comp: bytes, raw: bytes, device: str) -> dict:
+def multihost_phase(comp: bytes, raw: bytes) -> dict:
     """Phase 12: a two-process gloo job on one machine, each process with a
-    MultihostEngine on ``device``; every check is fatal."""
+    MultihostEngine on its own card (the runner names no device, so each
+    worker resolves it through ``multihost.rank_device``); every check is
+    fatal."""
     import hashlib
+
+    import torch
 
     from zstd_tpu_torch.testing import multihost_job
 
@@ -832,16 +908,17 @@ def multihost_phase(comp: bytes, raw: bytes, device: str) -> dict:
     src.write_bytes(comp)
     expect.write_bytes(raw)
     t0 = time.perf_counter()
-    results = multihost_job.run_job(src, expect, nproc=2, device=device, timeout=300, reps=4)
+    results = multihost_job.run_job(src, expect, nproc=2, timeout=300, reps=4)
     job_s = time.perf_counter() - t0
     sha = hashlib.sha256(raw).hexdigest()
     for r in results:
         rank = r["rank"]
+        own = f"cuda:{rank % torch.cuda.device_count()}"
+        check(r["device"] == own, f"multihost process {rank} ran on {r['device']}, not {own}")
         check(r["exact"] and r["all_reps_equal"] and r["sha256"] == sha,
               f"multihost process {rank}: output is not bit-exact")
         check(r["kernel_calls"] > 0 and r["fallback_frames"] == 0, f"multihost process {rank}: {r}")
-        if device.startswith("cuda"):
-            check(all(v > 0 for v in r["launches"].values()), f"multihost process {rank}: {r['launches']}")
+        check(all(v > 0 for v in r["launches"].values()), f"multihost process {rank}: {r['launches']}")
         for phase, ran in (("literals", r["lit_lanes_run"]), ("sequences", r["seq_lanes_run"])):
             b = r["bins"][phase]
             check(ran == b["lanes_with_work"][rank], f"multihost process {rank}: {ran} {phase} lanes "
@@ -877,6 +954,182 @@ def measure_phase(comp: bytes, raw: bytes, dev) -> dict:
     return res
 
 
+def _encode_frame(raw: bytes, level: int) -> tuple[bytes, float, int]:
+    """Worker process: the port's ``compress`` of one frame with its
+    seconds on one host thread, and libzstd's frame size at that level."""
+    from zstd_tpu_torch import compress
+    from zstd_tpu_torch.testing import libzstd
+
+    t0 = time.perf_counter()
+    comp = compress(raw, level, checksum=True)
+    return comp, time.perf_counter() - t0, len(libzstd.compress(raw, level, checksum=True))
+
+
+def hold_lanes(name: str, comp: bytes, plain_run, dev) -> dict:
+    """One plan of ``comp`` through the engine on the card, lane by lane
+    against the plain forms' run on the same plan (a future of
+    ``_one_plan_plain``), tolerance 0: the count of differing lanes."""
+    from zstd_tpu_torch import DeviceEngine
+    from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
+    from zstd_tpu_torch.testing.lanes import engine_lanes, lane_diffs
+
+    plan = build_batch_plan(comp, words=input_words(comp))
+    got = engine_lanes(DeviceEngine(device=dev), plan)
+    plain, plain_s = plain_run.result()
+    diffs = {k: lane_diffs(g, w) for k, g, w in zip(("literals", "pre_retry_sequences", "sequences"), got, plain)}
+    res = {"lit_lanes": plan.n_lit_lanes, "seq_lanes": plan.n_seq_lanes, "lanes_not_ok_on_card": {
+        "literals": int((~got[0][1]).sum()), "sequences": int((~got[2][1]).sum())}, "differing_lanes": diffs,
+        "plain_s": plain_s}
+    log(f"lanes {name}, card vs plain forms: " + json.dumps(res))
+    check(not any(diffs.values()), f"{name}: the card's lanes differ from the plain forms': {diffs}")
+    return res
+
+
+def encoder_phase(raw: bytes, dev) -> dict:
+    """Phase 14: the port's encoder at levels 1, 3 and 19, two 4 MiB frames
+    each (encoded in worker processes); libzstd decodes them; the engine
+    decodes them on both routes with counts from 0; the level-19 input
+    (one frame group) lane by lane against the plain forms."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from zstd_tpu_torch.testing import libzstd
+
+    levels, chunk = (1, 3, 19), 4 << 20
+    out = {}
+    pool = ProcessPoolExecutor(6, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        t0 = time.perf_counter()
+        jobs = {(lv, i): pool.submit(_encode_frame, raw[i : i + chunk], lv)
+                for lv in levels for i in range(0, len(raw), chunk)}
+        comps = {}
+        for lv in levels:
+            parts = [jobs[lv, i].result() for i in range(0, len(raw), chunk)]
+            comp = comps[lv] = b"".join(p[0] for p in parts)
+            enc_s, lib_bytes = sum(p[1] for p in parts), sum(p[2] for p in parts)
+            check(libzstd.decompress(comp) == raw, f"libzstd does not decode the port's level-{lv} frames")
+            out[lv] = {"raw_bytes": len(raw), "frames": len(parts), "compressed_bytes": len(comp),
+                       "libzstd_bytes": lib_bytes, "encode_vs_libzstd": len(comp) / lib_bytes,
+                       "encode_s": enc_s, "encode_mbs": len(raw) / enc_s / 1e6}
+            log(f"encoder level {lv}: " + json.dumps(out[lv]))
+        log(f"encoder: {len(jobs)} frames encoded in {time.perf_counter() - t0:.1f} s in worker processes")
+        plain_run = pool.submit(_one_plan_plain, comps[19])
+        for lv in levels:
+            for route, device_execute in (("default", False), ("device_lz77", True)):
+                need = kernels_needed(comps[lv], device_execute)
+                # Level-1 frames may hold raw literals only; levels 3 and
+                # 19 give every lane kernel work.
+                check(lv == 1 or {"literals", "sequences", "compact"} <= need,
+                      f"level-{lv} frames need only {need}")
+                r = end_to_end(f"encoder_level{lv}_8MiB_{route}", comps[lv], raw, device_execute, need)
+                out[lv][f"{route}_wall_s"] = r["wall_s"]
+                out[lv][f"{route}_launches"] = r["launches"]
+        out["lanes_level19"] = hold_lanes("encoder_level19", comps[19], plain_run, dev)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    return out
+
+
+def corrupt_phase(raw: bytes, dev) -> dict:
+    """Phase 15: seeded bit flips and truncations of a level-3 libzstd frame
+    and a level-19 port-made frame, 256 KiB each, through the engine on
+    both routes, held to the oracle; four flipped inputs whose prepass
+    succeeds lane by lane against the plain forms; then the fuzz harness
+    on the card."""
+    import logging
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from zstd_tpu_torch import DeviceEngine, compress
+    from zstd_tpu_torch.format.block_table import build_batch_plan
+    from zstd_tpu_torch.testing import fuzz, libzstd
+    from zstd_tpu_torch.utils.errors import ZstdError
+
+    size = 256 << 10
+    bases = {
+        "libzstd_level3": libzstd.compress(raw[:size], 3, checksum=True),
+        "port_level19": compress(raw[4 << 20 : (4 << 20) + size], 19, checksum=True),
+    }
+    inputs = [(name, i, data) for seed, (name, frame) in enumerate(bases.items())
+              for i, data in enumerate(fuzz.corrupt_frames(frame, seed))]
+    # Four flipped inputs whose prepass succeeds, two a frame, for the lanes.
+    picked = []
+    for name, i, data in inputs:
+        if i >= 64 or sum(p[0] == name for p in picked) == 2:
+            continue
+        try:
+            plan = build_batch_plan(data)
+        except ZstdError:
+            continue
+        if plan.n_lit_lanes and plan.n_seq_lanes:
+            picked.append((name, i, data))
+    check(len(picked) == 4, f"only {len(picked)} flipped inputs pass the prepass")
+    # Each corrupt input makes the engine log a fallback warning: keep
+    # them off the output (the counts below say what happened).
+    engine_log = logging.getLogger("zstd_tpu_torch.runtime.engine")
+    level = engine_log.level
+    engine_log.setLevel(logging.ERROR)
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        plain_runs = [pool.submit(_one_plan_plain, data) for _n, _i, data in picked]
+        engines = {"default": DeviceEngine(device=dev), "device_lz77": DeviceEngine(device=dev, device_execute=True)}
+        counts = {route: fuzz.FuzzCounts(iterations=len(inputs)) for route in engines}
+        # Launches by route, and the inputs that reached at least one
+        # kernel (the rest the host prepass rejected first).
+        fns = counters(device_execute=True)
+        for f in fns.values():
+            f.launches = 0
+        launched = {route: dict.fromkeys(fns, 0) for route in engines}
+        reached = dict.fromkeys(engines, 0)
+        failures = []
+        t0 = time.perf_counter()
+        for name, i, data in inputs:
+            want = fuzz.oracle(data)
+            for route, eng in engines.items():
+                before = {k: f.launches for k, f in fns.items()}
+                try:
+                    fuzz.hold_to_oracle(eng, data, want, counts[route])
+                except Exception as e:  # noqa: BLE001 — every failure is listed, then fatal
+                    failures.append(f"{name} input {i} ({route}): {type(e).__name__}: {e}")
+                    counts[route].failures += 1
+                    torch.cuda.synchronize()  # a CUDA fault stops the run here
+                delta = {k: f.launches - before[k] for k, f in fns.items()}
+                for k, n in delta.items():
+                    launched[route][k] += n
+                reached[route] += any(delta.values())
+        held_s = time.perf_counter() - t0
+        lanes = [hold_lanes(f"{name} flipped input {i}", data, run, dev)
+                 for (name, i, data), run in zip(picked, plain_runs)]
+    finally:
+        pool.shutdown(cancel_futures=True)
+        engine_log.setLevel(level)
+    res = {"inputs": len(inputs), "frames": {k: len(v) for k, v in bases.items()}, "held_s": held_s,
+           "by_route": {r: {"equal_bytes": c.engine_equal, "typed_errors": c.engine_typed_errors,
+                            "failures": c.failures, "launches": launched[r],
+                            "inputs_reaching_a_kernel": reached[r]} for r, c in counts.items()},
+           "lanes_compared": sum(x["lit_lanes"] + x["seq_lanes"] for x in lanes),
+           "lanes_differing": sum(sum(x["differing_lanes"].values()) for x in lanes)}
+    log("corrupt input on the card: " + json.dumps(res))
+    for line in failures:
+        log(f"corrupt input FAILURE: {line}")
+    check(not failures, f"{len(failures)} corrupt inputs broke the oracle contract on the card")
+    check(all(reached.values()), f"no corrupt input reached a kernel on some route: {reached}")
+
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "zstd_tpu_torch.testing.fuzz", "--engine", "--device", str(dev),
+         "--iterations", "100", "--seed", "0"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    lines = run.stdout.strip().splitlines()
+    res["fuzz"] = {"rc": run.returncode, "s": time.perf_counter() - t0, "summary": lines[-1] if lines else ""}
+    log("fuzz harness on the card: " + json.dumps(res["fuzz"]))
+    check(run.returncode == 0, f"fuzz harness failed:\n{run.stdout[-3000:]}{run.stderr[-3000:]}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -903,6 +1156,7 @@ def main() -> int:
     log(f"SM clock (now, max): {clocks.stdout.strip().splitlines()[0]}")
     log(f"kernel build: {_build.build_all():.1f} s (nvcc, sm_90a)")
     check(native.available(), "host C routines failed to build")
+    profiler_warm_up()
 
     log(f"libzstd: {ctypes.util.find_library('zstd')}")
     t0 = time.perf_counter()
@@ -934,8 +1188,10 @@ def main() -> int:
             "(make_mesh() spans the one card)")
     dev = torch.device("cuda", 0)
     sharded = sharded_phase(comp, raw, {"all_cards": make_mesh(), "cuda0_x2": make_mesh(2, device="cuda:0")}, dev)
-    mh = multihost_phase(comp, raw, "cuda:0")
+    mh = multihost_phase(comp, raw)
     measure_phase(comp, raw, dev)
+    encoder_phase(hl_raw, dev)
+    corrupt_phase(raw, dev)
     log("level3_24MB walls, s (medians; the default route from phase 4): default route "
         f"{main['wall_s']:.4f}, one-plan route (all_cards) {sharded['all_cards']['wall_s']:.4f}, "
         f"cuda0_x2 {sharded['cuda0_x2']['wall_s']:.4f}, multihost per process "

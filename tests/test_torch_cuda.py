@@ -16,7 +16,10 @@ and at positions just below 2^31; then checks the engine end to end, default and
 device-LZ77 routes, with every kernel launched; then the scale-out hooks:
 a ``[cuda:0] x 2`` mesh lane by lane against the single-device engine,
 ``measure_phases``, and (where there are two cards) every wrapper on
-``cuda:1`` tensors while ``cuda:0`` is current, and a mesh over the cards.
+``cuda:1`` tensors while ``cuda:0`` is current, and a mesh over the cards;
+last, corrupt input (seeded bit flips and truncations) through the
+engine on both routes, held to the host oracle, and the port encoder's
+frames decoded on the card with no oracle fallback.
 """
 
 from __future__ import annotations
@@ -297,3 +300,55 @@ def test_wrappers_launch_on_their_tensors_card(dev):
     got = engine_lanes(ShardedEngine(make_mesh()), plan)
     for g, w, what in zip(got, want, ("literals", "pre-retry sequences", "sequences")):
         assert_lanes_equal(*g, *w, what)
+
+
+def _corpus_slice(size: int = 64 << 10) -> bytes:
+    from zstd_tpu_torch.testing.corpus import build_corpus
+
+    return build_corpus(1.0)[:size]
+
+
+@pytest.mark.parametrize("route", ["default", "device_lz77"])
+def test_corrupt_input_on_card_matches_the_oracle(dev, route):
+    # Seeded bit flips (past the frame header) and truncations of a
+    # level-3 frame: each input gives the oracle's bytes or a ZstdError
+    # where the oracle raises one, never another error or a CUDA fault
+    # (a synchronisation after each input charges a fault to it).  Two
+    # flipped inputs whose prepass succeeds: the card's lanes and ok
+    # flags equal the plain forms' on the CPU.
+    from zstd_tpu_torch.testing import fuzz, libzstd
+    from zstd_tpu_torch.testing.lanes import lane_diffs
+    from zstd_tpu_torch.utils.errors import ZstdError
+
+    frame = libzstd.compress(_corpus_slice(), 3, checksum=True)
+    eng = engine.DeviceEngine(device=dev, device_execute=route == "device_lz77")
+    counts = fuzz.FuzzCounts()
+    compared = 0
+    for i, data in enumerate(fuzz.corrupt_frames(frame, seed=5)):
+        fuzz.hold_to_oracle(eng, data, fuzz.oracle(data), counts)
+        if i < 64 and compared < 2:
+            try:
+                plan = build_batch_plan(data)
+            except ZstdError:
+                continue
+            got = engine_lanes(engine.DeviceEngine(device=dev), plan)
+            torch.cuda.synchronize()
+            want = engine_lanes(engine.DeviceEngine(device="cpu"), plan)
+            assert [lane_diffs(g, w) for g, w in zip(got, want)] == [0, 0, 0], f"flipped input {i}"
+            compared += 1
+    assert compared == 2 and counts.engine_typed_errors > 0
+    assert counts.engine_equal + counts.engine_typed_errors == 80
+
+
+@pytest.mark.parametrize("level", [1, 3, 19])
+def test_encoder_frames_decode_on_card(dev, level):
+    from zstd_tpu_torch import compress, native
+
+    assert native.available()
+    raw = _corpus_slice(256 << 10)
+    comp = compress(raw, level, checksum=True)
+    for device_execute in (False, True):
+        eng = engine.DeviceEngine(device=dev, device_execute=device_execute)
+        assert eng.decompress(comp) == raw
+        assert eng.stats.fallback_frames == 0, eng.stats.fallback_reasons
+        assert eng.stats.kernel_calls > 0

@@ -1,8 +1,10 @@
 """The PyTorch port's plain kernel forms against the JAX reference.
 
 The corpora of ``tests/test_pallas.py`` (level-3 text, level-19 repeat
-streams, the stall-heavy frame, the packed-overflow lane) are planned
-once as one input, and the JAX engine's lax.scan path — the form
+streams, the stall-heavy frame, the packed-overflow lane) and one frame
+of the port's encoder with treeless literals and FSE Repeat mode
+(``torch_inputs.encoder_frame``) are planned once as one input, and the
+JAX engine's lax.scan path — the form
 ``tests/test_pallas.py`` holds the Pallas kernels to — decodes that plan
 with every ``zstd_tpu.kernels.entropy2`` call recorded
 (``torch_inputs.jax_reference``).  The same numpy inputs then go through
@@ -32,7 +34,7 @@ import pytest
 import torch
 
 import zstd_tpu.kernels.entropy2 as jax_e2
-from torch_inputs import combined, jax_reference
+from torch_inputs import combined, encoder_frame, jax_reference
 from zstd_tpu_torch.format.block_table import build_batch_plan
 from zstd_tpu_torch.kernels import compact, literals, sequences
 from zstd_tpu_torch.kernels import entropy2 as t_e2
@@ -55,9 +57,13 @@ def _u32(a) -> np.ndarray:
     return a.astype(np.int64) & 0xFFFFFFFF
 
 
+def _ref_input() -> bytes:
+    return combined()[0] + encoder_frame()[0]
+
+
 @pytest.fixture(scope="module")
 def ref():
-    return jax_reference(combined()[0])
+    return jax_reference(_ref_input())
 
 
 def _calls(ref, name, **match):
@@ -217,11 +223,39 @@ def test_lanes_match_jax_engine_before_and_after_retry(ref):
 
 def test_own_plan_drives_same_lanes(ref):
     # The port's own prepass gives the same lanes as the JAX plan.
-    data = combined()[0]
+    data = _ref_input()
     eng = DeviceEngine(device="cpu")
     (lit_outs, lit_ok), (seq_outs, seq_ok) = eng._run_both(build_batch_plan(data))
     assert_lanes_equal(lit_outs, lit_ok, ref["lit_outs"], ref["lit_ok"], "literals")
     assert_lanes_equal(seq_outs, seq_ok, ref["seq_outs"], ref["seq_ok"], "sequences")
+
+
+def test_encoder_frame_lanes_match_jax_engine(ref, monkeypatch):
+    # The port-made frame (the plan's last) is the JAX encoder's frame
+    # byte for byte, holds treeless literals and an FSE Repeat table, and
+    # its lanes on the port's engine equal the JAX engine's, all ok.
+    import zstd_tpu.encode as jax_encode
+
+    data, payload = encoder_frame()
+    monkeypatch.setattr(jax_encode, "MAX_BLOCK", 256)
+    assert jax_encode.compress(payload, 3, checksum=True) == data
+    plan = ref["plan"]
+    fp = plan.frames[-1]
+    blocks = [b for b in fp.frame.blocks if b.btype.name == "COMPRESSED"]
+    assert any(b.literals.ltype.name == "TREELESS" for b in blocks)
+    assert any(m.mode.name == "REPEAT" for b in blocks if b.sequences.num_sequences
+               for m in (b.sequences.ll, b.sequences.of, b.sequences.ml))
+    lit_lanes = [r.lane for bp in fp.blocks for r in bp.lit_streams]
+    seq_lanes = [bp.seq_lane for bp in fp.blocks if bp.seq_lane >= 0]
+    assert lit_lanes and len(seq_lanes) == len(blocks)
+    (lit_outs, lit_ok), (seq_outs, seq_ok) = DeviceEngine(device="cpu")._run_both(plan)
+    for lanes, got, want in (
+        (lit_lanes, (lit_outs, lit_ok), (ref["lit_outs"], ref["lit_ok"])),
+        (seq_lanes, (seq_outs, seq_ok), (ref["seq_outs"], ref["seq_ok"])),
+    ):
+        assert all(want[1][lanes])
+        assert_lanes_equal([got[0][i] for i in lanes], got[1][lanes],
+                           [want[0][i] for i in lanes], want[1][lanes], "encoder frame")
 
 
 def test_device_lz77_assembly_matches_jax_frame_by_frame(ref):

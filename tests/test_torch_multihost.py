@@ -18,6 +18,7 @@ on the CPU.
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -203,3 +204,72 @@ def test_concurrent_builds_end_with_whole_libraries(tmp_path):
     assert (build / "libzt_compact.so").read_bytes() == want
     assert (build / "compact.ptxas.txt").read_text().startswith("ptxas info")
     assert sorted(p.name for p in build.iterdir()) == ["compact.ptxas.txt", "go", "libzt_compact.so"]
+
+
+@pytest.mark.parametrize(
+    "rank, local_rank, cards, want",
+    [(0, None, 4, "cuda:0"), (3, None, 4, "cuda:3"), (5, None, 4, "cuda:1"), (1, None, 1, "cuda:0"),
+     (6, "2", 4, "cuda:2")],
+)
+def test_each_rank_takes_its_own_card(monkeypatch, rank, local_rank, cards, want):
+    # With neither a device nor a local mesh, process `rank` resolves to
+    # its own card (LOCAL_RANK, else rank mod the card count).  The card
+    # count is stubbed: nothing is launched, so no card is needed.
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(multihost, "_job", lambda: (8, rank))
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    eng = multihost.MultihostEngine()
+    assert (eng.nproc, eng.pid) == (8, rank)
+    assert str(eng.device) == want and eng._placement == (eng.device,)
+    assert multihost.MultihostEngine(device="cpu").device.type == "cpu"  # a named device wins
+    assert multihost.rank_device(rank) == want
+
+
+class _Worker:
+    """A stand-in for a worker process: records its command line and
+    prints one JSON line."""
+
+    def __init__(self, cmd, **kw):
+        self.cmd, self.returncode = cmd, 0
+
+    def communicate(self, timeout=None):
+        return json.dumps({"rank": int(self.cmd[self.cmd.index("--rank") + 1])}) + "\n", None
+
+    def poll(self):
+        return 0
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_job_runner_names_a_device_only_when_asked(monkeypatch, device):
+    # With no device named, no worker gets --device, so each worker's
+    # MultihostEngine() resolves its own card through rank_device; a
+    # named device (cpu included) goes to every worker.
+    started = []
+    monkeypatch.setattr(multihost_job.subprocess, "Popen",
+                        lambda cmd, **kw: started.append(_Worker(cmd, **kw)) or started[-1])
+    results = multihost_job.run_job("in.zst", nproc=3, device=device)
+    assert [r["rank"] for r in results] == [0, 1, 2]
+    for w in started:
+        if device is None:
+            assert "--device" not in w.cmd
+        else:
+            assert w.cmd[w.cmd.index("--device") + 1] == device
+
+
+def test_no_card_and_no_device_raises(monkeypatch):
+    # Nothing falls back to the CPU: without CUDA and with no device
+    # named, the engine raises (in a job worker too, which is given no
+    # device then).
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert multihost.rank_device(0) is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.MultihostEngine()

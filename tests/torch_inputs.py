@@ -135,6 +135,30 @@ def overflow_lane() -> tuple[bytes, bytes]:
     return data, bytes(payload)
 
 
+def encoder_frame() -> tuple[bytes, bytes]:
+    """One frame of the port's encoder at level 3 with 256-byte blocks
+    (its blocks are ``MAX_BLOCK`` long; the format allows any length up
+    to it): four blocks of word text from a vocabulary that grows, the
+    first with a Huffman table, two after it with treeless literals that
+    reuse it, two with an FSE Repeat table.  Its lanes (162-202 literals,
+    7-14 sequences) fall in the step tiers and output sizes of the
+    combined corpus's lanes in the JAX engine's op-by-op run, so adding
+    it there adds no call and no array shape."""
+    from zstd_tpu_torch import encode
+
+    rng = np.random.default_rng(24)
+    words = [rng.integers(97, 123, int(k), dtype=np.uint8).tobytes() for k in rng.integers(2, 9, 256)]
+    picks = [int(rng.integers(0, min(256, 8 + 2 * i))) for i in range(150)]
+    payload = b" ".join(words[i] for i in picks)
+    block = encode.MAX_BLOCK
+    encode.MAX_BLOCK = 256
+    try:
+        data = encode.compress(payload, 3, checksum=True)
+    finally:
+        encode.MAX_BLOCK = block
+    return data, payload
+
+
 CORPORA = {
     "level3_text": level3_text,
     "level19_repeat": level19_repeat,

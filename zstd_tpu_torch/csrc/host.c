@@ -1,7 +1,8 @@
-/* Host runtime routines of the PyTorch port (decode side).
+/* Host runtime routines of the PyTorch port.
  *
  * The entropy decode runs on the GPU (csrc/literals.cu, sequences.cu,
- * compact.cu); these C routines cover the host work around it:
+ * compact.cu); these C routines cover the host work around it and the
+ * encoder's match finders:
  *
  *   - zt_xxh64: frame content checksums, from the public XXH64 spec.
  *   - zt_execute_sequences: LZ77 sequence execution with memcpy-chunked,
@@ -10,6 +11,8 @@
  *     (kernels/lz77_device.py).
  *   - zt_fse_parse_build / zt_fse_weights: FSE table parse + build and
  *     FSE-compressed Huffman weights (the host prepass's hot calls).
+ *   - zt_lz77_lazy / zt_lz77_optimal: the encoder's hash-chain lazy
+ *     matcher and price-driven optimal parse (encode.py).
  *
  * Built with plain gcc -O2 -shared at first use and loaded via ctypes
  * (zstd_tpu_torch/native/__init__.py).  Return codes mirror the Python
@@ -204,6 +207,221 @@ EXPORT int zt_execute_sequences(
     return ZT_OK;
 }
 
+/* ---------------------------- LZ77 hashing ----------------------------- */
+
+#define ZT_HASH_LOG 16
+#define ZT_MIN_MATCH 4
+
+static inline uint32_t zt_hash4(const uint8_t *p) {
+    uint32_t v;
+    memcpy(&v, p, 4);
+    return (v * 2654435761u) >> (32 - ZT_HASH_LOG);
+}
+
+/* ---------------- LZ77 hash-chain lazy matcher (encoder) ----------------
+ * zstd-style search replacing the single-probe greedy above for
+ * level >= 2: a 2^ZT_HASH_LOG head table plus a chain table over the
+ * last `chain_mask + 1` positions gives `attempts` candidates per
+ * position; the three repeat offsets are probed first with a virtual
+ * +1 length bonus (they encode in <= 5 bits, decoding_context.rs:50-75
+ * is the decoder mirror); `lazy` enables one-step-deferred match
+ * selection (emit a literal instead when position i+1 holds a strictly
+ * longer match).  Matches may reach into earlier blocks of the frame
+ * (bounded by `window`); head/chain persist across per-block calls.
+ * The rep history update mirrors encode.offsets_to_values exactly so
+ * search preferences track what the bitstream will actually encode.
+ */
+
+static inline size_t zt_match_len(
+    const uint8_t *src, size_t a, size_t b, size_t limit) {
+    size_t len = 0;
+    while (b + len + 8 <= limit) {
+        uint64_t x, y;
+        memcpy(&x, src + a + len, 8);
+        memcpy(&y, src + b + len, 8);
+        uint64_t diff = x ^ y;
+        if (diff) return len + ((size_t)__builtin_ctzll(diff) >> 3);
+        len += 8;
+    }
+    while (b + len < limit && src[a + len] == src[b + len]) len++;
+    return len;
+}
+
+static inline void zt_rep_update(int32_t reps[3], int32_t o, int32_t ll) {
+    int v;
+    if (ll != 0) {
+        if (o == reps[0]) v = 1;
+        else if (o == reps[1]) v = 2;
+        else if (o == reps[2]) v = 3;
+        else v = 0;
+        if (v == 0) { reps[2] = reps[1]; reps[1] = reps[0]; reps[0] = o; }
+        else if (v == 2) { int32_t t = reps[0]; reps[0] = reps[1]; reps[1] = t; }
+        else if (v == 3) {
+            int32_t t = reps[2];
+            reps[2] = reps[1]; reps[1] = reps[0]; reps[0] = t;
+        }
+    } else {
+        if (o == reps[1]) {
+            int32_t t = reps[0]; reps[0] = reps[1]; reps[1] = t;
+        } else if (o == reps[2]) {
+            int32_t t = reps[2];
+            reps[2] = reps[1]; reps[1] = reps[0]; reps[0] = t;
+        } else if (o == reps[0] - 1 && o > 0) {
+            reps[2] = reps[1]; reps[1] = reps[0]; reps[0] = o;
+        } else if (o != reps[0]) {
+            reps[2] = reps[1]; reps[1] = reps[0]; reps[0] = o;
+        }
+    }
+}
+
+/* Best match at position i.  Returns length (0 if < ZT_MIN_MATCH);
+ * *off_out gets the offset.  `cur_ll` is the pending literal-run
+ * length (rep candidate rules differ at ll == 0). */
+static inline int zt_log2_u32(uint32_t v) {
+    return v <= 1 ? 0 : 31 - __builtin_clz(v);
+}
+
+/* Cost-aware match score in quarter-length units (the zstd lazy
+ * heuristic): 4*len - log2(offset), with repeat offsets scored as if
+ * offset == 1 plus a +4 continuity bonus — a rep code costs <= 5 bits
+ * where a fresh offset costs log2(off) extra bits AND evicts the
+ * rep history the following sequences would have reused. */
+static size_t zt_find_best(
+    const uint8_t *src, size_t i, size_t lo, size_t limit,
+    const int32_t *head, const int32_t *chain, size_t chain_mask,
+    int attempts, const int32_t reps[3], int32_t cur_ll,
+    int32_t *off_out, long *score_out) {
+    size_t best_len = 0;
+    int32_t best_off = 0;
+    long best_score = 4 * (long)(ZT_MIN_MATCH - 1); /* must beat this */
+
+    /* Encodable rep-candidate set depends on whether literals precede
+     * the sequence (offsets_to_values / decoding_context.rs:50-75).
+     * Rep matches may be as short as 3 bytes. */
+    int32_t rep_cands[3];
+    if (cur_ll != 0) {
+        rep_cands[0] = reps[0]; rep_cands[1] = reps[1]; rep_cands[2] = reps[2];
+    } else {
+        rep_cands[0] = reps[1]; rep_cands[1] = reps[2]; rep_cands[2] = reps[0] - 1;
+    }
+    for (int k = 0; k < 3; k++) {
+        int32_t o = rep_cands[k];
+        if (o <= 0 || (size_t)o > i || i - (size_t)o < lo) continue;
+        size_t len = zt_match_len(src, i - (size_t)o, i, limit);
+        long score = 4 * (long)len + 4;
+        if (len >= 3 && score > best_score) {
+            best_score = score;
+            best_len = len;
+            best_off = o;
+        }
+    }
+
+    uint32_t h = zt_hash4(src + i);
+    int64_t cand = head[h];
+    for (int t = 0; t < attempts && cand >= (int64_t)lo; t++) {
+        if (i + best_len >= limit) break; /* cannot improve further */
+        if (cand >= (int64_t)i) { /* self/future entries (stale aliases) */
+            int64_t prev = chain[(size_t)cand & chain_mask];
+            if (prev >= cand) break;
+            cand = prev;
+            continue;
+        }
+        /* Quick reject: the byte that would extend the current best. */
+        if (src[(size_t)cand + best_len] == src[i + best_len] &&
+            memcmp(src + cand, src + i, ZT_MIN_MATCH) == 0) {
+            size_t len = zt_match_len(
+                src, (size_t)cand + ZT_MIN_MATCH, i + ZT_MIN_MATCH, limit)
+                + ZT_MIN_MATCH;
+            uint32_t off = (uint32_t)(i - (size_t)cand);
+            long score = 4 * (long)len - zt_log2_u32(off);
+            if (score > best_score) {
+                best_score = score;
+                best_len = len;
+                best_off = (int32_t)off;
+            }
+        }
+        int64_t prev = chain[(size_t)cand & chain_mask];
+        if (prev >= cand) break; /* stale entry from an older window */
+        cand = prev;
+    }
+    *off_out = best_off;
+    *score_out = best_score;
+    return best_off ? best_len : 0;
+}
+
+EXPORT size_t zt_lz77_lazy(
+    const uint8_t *src, size_t block_start, size_t block_end, size_t window,
+    int32_t *head /* [1<<ZT_HASH_LOG] */,
+    int32_t *chain /* [chain_mask + 1] */, size_t chain_mask,
+    int attempts, int lazy,
+    int32_t *reps_io /* [3] */,
+    int32_t *ll_out, int32_t *off_out, int32_t *ml_out, size_t max_seqs,
+    uint8_t *lit_out, size_t *lit_len_io) {
+    size_t n_seq = 0;
+    size_t lit_len = 0;
+    size_t anchor = block_start;
+    size_t i = block_start;
+    size_t match_limit = block_end >= 8 ? block_end - 8 : 0;
+    int32_t reps[3] = { reps_io[0], reps_io[1], reps_io[2] };
+
+#define ZT_INSERT(p) do { \
+        uint32_t _h = zt_hash4(src + (p)); \
+        chain[(p) & chain_mask] = head[_h]; \
+        head[_h] = (int32_t)(p); \
+    } while (0)
+
+    size_t inserted_to = block_start; /* positions < inserted_to are in */
+
+    while (i < match_limit && n_seq < max_seqs) {
+        size_t lo = i > window ? i - window : 0;
+        int32_t off0;
+        long score0;
+        size_t len0 = zt_find_best(src, i, lo, block_end, head, chain,
+                                   chain_mask, attempts, reps,
+                                   (int32_t)(i - anchor), &off0, &score0);
+        if (inserted_to <= i) { ZT_INSERT(i); inserted_to = i + 1; }
+        if (len0 == 0) { i++; continue; }
+        /* One-step lazy: defer when i+1 holds a clearly better match
+         * (score gain > 3 quarter-lengths covers the literal spent). */
+        while (lazy && i + 1 < match_limit) {
+            int32_t off1;
+            long score1;
+            size_t lo1 = i + 1 > window ? i + 1 - window : 0;
+            size_t len1 = zt_find_best(src, i + 1, lo1, block_end, head,
+                                       chain, chain_mask, attempts, reps,
+                                       (int32_t)(i + 1 - anchor), &off1,
+                                       &score1);
+            if (inserted_to <= i + 1) { ZT_INSERT(i + 1); inserted_to = i + 2; }
+            if (len1 && score1 > score0 + 3) {
+                i++; len0 = len1; off0 = off1; score0 = score1;
+            } else break;
+        }
+        size_t ll = i - anchor;
+        memcpy(lit_out + lit_len, src + anchor, ll);
+        lit_len += ll;
+        ll_out[n_seq] = (int32_t)ll;
+        off_out[n_seq] = off0;
+        ml_out[n_seq] = (int32_t)len0;
+        n_seq++;
+        zt_rep_update(reps, off0, (int32_t)ll);
+        /* Insert every position inside the match (quality > speed;
+         * the matcher is not the encode bottleneck). */
+        {
+            size_t stop = i + len0 < match_limit ? i + len0 : match_limit;
+            for (size_t j = inserted_to; j < stop; j++) ZT_INSERT(j);
+            if (stop > inserted_to) inserted_to = stop;
+        }
+        i += len0;
+        anchor = i;
+    }
+#undef ZT_INSERT
+    memcpy(lit_out + lit_len, src + anchor, block_end - anchor);
+    lit_len += block_end - anchor;
+    *lit_len_io = lit_len;
+    reps_io[0] = reps[0]; reps_io[1] = reps[1]; reps_io[2] = reps[2];
+    return n_seq;
+}
+
 /* ---------------------- repeat-offset resolution ------------------------ */
 
 /* Resolve n (ll, offset_value) pairs to actual offsets, maintaining the
@@ -239,6 +457,290 @@ EXPORT int zt_resolve_offsets(
         off_out[i] = (int64_t)offset;
     }
     return 0;
+}
+
+/* -------------------- LZ77 optimal parse (encoder) ----------------------
+ * Price-driven dynamic program over every block position (zstd btopt
+ * style, from scratch): opt[p] holds the cheapest way to materialize
+ * src[block_start .. block_start+p) as sequences + literals, with the
+ * repeat-offset history and pending literal-run length carried per
+ * entry so both pricing and candidate legality track RFC 8878
+ * semantics (decoding_context.rs:50-75 is the decoder mirror).
+ *
+ * Prices are in 1/8-bit units.  Literal prices come from the caller
+ * (block-histogram entropy); sequence prices use the normative LL/ML
+ * code tables (sequence.rs:98-191) with a flat tANS-state estimate
+ * plus exact extra bits, and offsets priced as log2(offset) extra bits
+ * vs a cheap repeat code.  This is the parse that greedy/lazy cannot
+ * reproduce: matches whose total price exceeds the literal path (e.g.
+ * the incrementing-counter synthetic's skewed leading digits) are
+ * left as literals.
+ */
+
+static const uint32_t ZT_LL_BASE[36] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+    16, 18, 20, 22, 24, 28, 32, 40, 48, 64, 128, 256, 512, 1024, 2048,
+    4096, 8192, 16384, 32768, 65536,
+};
+static const uint8_t ZT_LL_XB[36] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    1, 1, 1, 1, 2, 2, 3, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16,
+};
+static const uint32_t ZT_ML_BASE[53] = {
+    3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
+    22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 37, 39, 41,
+    43, 47, 51, 59, 67, 83, 99, 131, 259, 515, 1027, 2051, 4099, 8195,
+    16387, 32771, 65539,
+};
+static const uint8_t ZT_ML_XB[53] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 5, 7, 8, 9,
+    10, 11, 12, 13, 14, 15, 16,
+};
+
+/* Per-code prices (1/8-bit units) come from the caller: flat tANS
+ * estimates on the first pass, then re-derived from the emitted code
+ * histograms on later passes (the adaptive-pricing loop that makes the
+ * DP reproduce structure-preserving parses — libzstd-1 reaches 0.35
+ * bit/seq on locked-rep streams precisely because its stream stats
+ * feed back into its prices). */
+
+static inline int zt_ll_code(uint32_t litlen) {
+    if (litlen < 16) return (int)litlen;
+    int code = 35;
+    while (ZT_LL_BASE[code] > litlen) code--;
+    return code;
+}
+
+static inline int zt_ml_code(uint32_t mlen) {
+    if (mlen < 35) return (int)mlen - 3;
+    int code = 52;
+    while (ZT_ML_BASE[code] > mlen) code--;
+    return code;
+}
+
+static inline uint32_t zt_price_ll(const uint32_t *ll_price, uint32_t litlen) {
+    int code = zt_ll_code(litlen);
+    return ll_price[code] + 8u * ZT_LL_XB[code];
+}
+
+static inline uint32_t zt_price_ml(const uint32_t *ml_price, uint32_t mlen) {
+    int code = zt_ml_code(mlen);
+    return ml_price[code] + 8u * ZT_ML_XB[code];
+}
+
+/* The offset value this (off, rep-history, litlen) combination would
+ * encode as — mirror of encode.offsets_to_values. */
+static inline uint32_t zt_ofv_of(
+    int32_t off, const int32_t rep[3], uint32_t litlen) {
+    if (litlen != 0) {
+        if (off == rep[0]) return 1;
+        if (off == rep[1]) return 2;
+        if (off == rep[2]) return 3;
+    } else {
+        if (off == rep[1]) return 1;
+        if (off == rep[2]) return 2;
+        if (off == rep[0] - 1) return 3;
+    }
+    return (uint32_t)off + 3;
+}
+
+static inline uint32_t zt_price_of(
+    const uint32_t *of_price, int32_t off, const int32_t rep[3],
+    uint32_t litlen) {
+    uint32_t code = (uint32_t)zt_log2_u32(zt_ofv_of(off, rep, litlen));
+    return of_price[code] + 8u * code;
+}
+
+typedef struct {
+    uint32_t cost;   /* 1/8-bit units */
+    uint32_t from;   /* source position (relative) of the setting step */
+    int32_t mlen;    /* 0 = literal step */
+    int32_t moff;
+    int32_t rep[3];
+    uint32_t litlen; /* pending literal-run length ending here */
+} zt_opt_t;
+
+#include <stdlib.h>
+
+EXPORT size_t zt_lz77_optimal(
+    const uint8_t *src, size_t block_start, size_t block_end, size_t window,
+    int32_t *head, int32_t *chain, size_t chain_mask, int attempts,
+    int32_t *reps_io /* [3] */,
+    const uint32_t *lit_price /* [256], 1/8-bit units */,
+    const uint32_t *ll_price /* [36] */,
+    const uint32_t *ml_price /* [53] */,
+    const uint32_t *of_price /* [32] */,
+    int32_t *ll_out, int32_t *off_out, int32_t *ml_out, size_t max_seqs,
+    uint8_t *lit_out, size_t *lit_len_io) {
+    size_t n = block_end - block_start;
+    size_t match_limit = block_end >= 8 ? block_end - 8 : 0;
+    zt_opt_t *opt = (zt_opt_t *)malloc((n + 1) * sizeof(zt_opt_t));
+    if (!opt) { *lit_len_io = 0; return 0; }
+    for (size_t p = 0; p <= n; p++) opt[p].cost = UINT32_MAX;
+    opt[0].cost = 0;
+    opt[0].from = 0;
+    opt[0].mlen = 0;
+    opt[0].moff = 0;
+    opt[0].rep[0] = reps_io[0];
+    opt[0].rep[1] = reps_io[1];
+    opt[0].rep[2] = reps_io[2];
+    opt[0].litlen = 0;
+
+#define ZT_RELAX_LIT(p) do { \
+        uint32_t _c = opt[p].cost + lit_price[src[block_start + (p)]]; \
+        if (_c < opt[(p) + 1].cost) { \
+            opt[(p) + 1].cost = _c; \
+            opt[(p) + 1].from = (uint32_t)(p); \
+            opt[(p) + 1].mlen = 0; \
+            opt[(p) + 1].moff = 0; \
+            opt[(p) + 1].rep[0] = opt[p].rep[0]; \
+            opt[(p) + 1].rep[1] = opt[p].rep[1]; \
+            opt[(p) + 1].rep[2] = opt[p].rep[2]; \
+            opt[(p) + 1].litlen = opt[p].litlen + 1; \
+        } \
+    } while (0)
+
+    /* Candidate set per position: the 3 legal repeat offsets plus
+     * length-improving hash-chain matches. */
+    for (size_t p = 0; p < n; p++) {
+        size_t i = block_start + p;
+        ZT_RELAX_LIT(p);
+        if (i >= match_limit) continue;
+
+        const zt_opt_t *cur = &opt[p];
+        size_t lo = i > window ? i - window : 0;
+        struct { int32_t off; size_t len; } cands[8];
+        int ncand = 0;
+
+        int32_t rep_cands[3];
+        if (cur->litlen != 0) {
+            rep_cands[0] = cur->rep[0];
+            rep_cands[1] = cur->rep[1];
+            rep_cands[2] = cur->rep[2];
+        } else {
+            rep_cands[0] = cur->rep[1];
+            rep_cands[1] = cur->rep[2];
+            rep_cands[2] = cur->rep[0] - 1;
+        }
+        size_t best_rep = 0;
+        for (int k = 0; k < 3; k++) {
+            int32_t o = rep_cands[k];
+            if (o <= 0 || (size_t)o > i || i - (size_t)o < lo) continue;
+            size_t len = zt_match_len(src, i - (size_t)o, i, block_end);
+            if (len >= 3 && len > best_rep) {
+                cands[ncand].off = o;
+                cands[ncand].len = len;
+                ncand++;
+                best_rep = len;
+                if (ncand == 8) break;
+            }
+        }
+
+        uint32_t h = zt_hash4(src + i);
+        int64_t cand = head[h];
+        size_t best_len = best_rep > ZT_MIN_MATCH ? best_rep : ZT_MIN_MATCH - 1;
+        for (int t = 0; t < attempts && cand >= (int64_t)lo && ncand < 8; t++) {
+            if ((size_t)cand >= i) {
+                int64_t prev = chain[(size_t)cand & chain_mask];
+                if (prev >= cand) break;
+                cand = prev;
+                continue;
+            }
+            if (i + best_len < block_end &&
+                src[(size_t)cand + best_len] == src[i + best_len] &&
+                memcmp(src + cand, src + i, ZT_MIN_MATCH) == 0) {
+                size_t len = zt_match_len(
+                    src, (size_t)cand + ZT_MIN_MATCH, i + ZT_MIN_MATCH,
+                    block_end) + ZT_MIN_MATCH;
+                if (len > best_len) {
+                    cands[ncand].off = (int32_t)(i - (size_t)cand);
+                    cands[ncand].len = len;
+                    ncand++;
+                    best_len = len;
+                }
+            }
+            int64_t prev = chain[(size_t)cand & chain_mask];
+            if (prev >= cand) break;
+            cand = prev;
+        }
+        /* Insert after the search so p never matches itself. */
+        chain[i & chain_mask] = head[h];
+        head[h] = (int32_t)i;
+
+        for (int c = 0; c < ncand; c++) {
+            int32_t off = cands[c].off;
+            size_t len = cands[c].len;
+            if (p + len > n) len = n - p;
+            uint32_t ofp = zt_price_of(of_price, off, cur->rep, cur->litlen);
+            uint32_t base = cur->cost + zt_price_ll(ll_price, cur->litlen) + ofp;
+            size_t lmin = (off == rep_cands[0] || off == rep_cands[1] ||
+                           off == rep_cands[2]) ? 3 : ZT_MIN_MATCH;
+            /* Relax every length up to a cap, then the full length —
+             * bounding per-position work on repetitive data. */
+            size_t lcap = len < 96 ? len : 96;
+            for (size_t l = lmin; l <= lcap || l == len; l = (l < lcap ? l + 1 : len)) {
+                uint32_t price = base + zt_price_ml(ml_price, (uint32_t)l);
+                zt_opt_t *dst = &opt[p + l];
+                if (price < dst->cost) {
+                    dst->cost = price;
+                    dst->from = (uint32_t)p;
+                    dst->mlen = (int32_t)l;
+                    dst->moff = off;
+                    dst->rep[0] = cur->rep[0];
+                    dst->rep[1] = cur->rep[1];
+                    dst->rep[2] = cur->rep[2];
+                    zt_rep_update(dst->rep, off, (int32_t)cur->litlen);
+                    dst->litlen = 0;
+                }
+                if (l == len) break;
+            }
+        }
+    }
+#undef ZT_RELAX_LIT
+
+    /* Backtrack: trailing literals, then (litlen, off, mlen) per hop. */
+    size_t n_seq = 0;
+    {
+        size_t p = n - (size_t)opt[n].litlen;
+        /* Collect sequences in reverse. */
+        size_t stack_cap = max_seqs;
+        while (p > 0 && n_seq < stack_cap) {
+            zt_opt_t *e = &opt[p];
+            uint32_t ll = opt[e->from].litlen;
+            ll_out[n_seq] = (int32_t)ll;
+            off_out[n_seq] = e->moff;
+            ml_out[n_seq] = e->mlen;
+            n_seq++;
+            p = (size_t)e->from - ll;
+        }
+        /* Reverse into forward order. */
+        for (size_t a = 0, b = n_seq - 1; n_seq && a < b; a++, b--) {
+            int32_t t;
+            t = ll_out[a]; ll_out[a] = ll_out[b]; ll_out[b] = t;
+            t = off_out[a]; off_out[a] = off_out[b]; off_out[b] = t;
+            t = ml_out[a]; ml_out[a] = ml_out[b]; ml_out[b] = t;
+        }
+    }
+    /* Literals and final rep state, forward order. */
+    {
+        size_t anchor = block_start;
+        size_t lit_len = 0;
+        int32_t reps[3] = { reps_io[0], reps_io[1], reps_io[2] };
+        for (size_t s = 0; s < n_seq; s++) {
+            size_t ll = (size_t)ll_out[s];
+            memcpy(lit_out + lit_len, src + anchor, ll);
+            lit_len += ll;
+            zt_rep_update(reps, off_out[s], (int32_t)ll);
+            anchor += ll + (size_t)ml_out[s];
+        }
+        memcpy(lit_out + lit_len, src + anchor, block_end - anchor);
+        lit_len += block_end - anchor;
+        *lit_len_io = lit_len;
+        reps_io[0] = reps[0]; reps_io[1] = reps[1]; reps_io[2] = reps[2];
+    }
+    free(opt);
+    return n_seq;
 }
 
 /* ---- FSE table parse + build (host prepass, RFC 8878 section 4.1.1) ----

@@ -6,8 +6,9 @@ Every process of the job runs the same program:
 2. ``shard_lanes_balanced`` splits the literal and sequence lane tables
    into per-process bins balanced by symbol count,
 3. each process decodes only its bin with the engine's dispatch
-   (``runtime/engine.py``; lane-sharded over its local devices when
-   given a ``local_mesh``),
+   (``runtime/engine.py``) on its own card (``rank_device``) unless
+   given a device, or lane-sharded over its local devices when given a
+   ``local_mesh``,
 4. per-lane outputs are exchanged with an ordered fixed-shape all-gather
    across processes (pad-to-max buffers and exact slicing), and
 5. every process assembles the full frame bytes identically.
@@ -21,6 +22,7 @@ sequence.  ``zstd_tpu/parallel/multihost.py`` is the reference.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -62,6 +64,17 @@ def _allgather(arr: np.ndarray) -> np.ndarray:
     return torch.stack(out).numpy()
 
 
+def rank_device(rank: int) -> str | None:
+    """The card of process ``rank`` on its machine: ``cuda:LOCAL_RANK``
+    when the launcher sets ``LOCAL_RANK``, else ``cuda:{rank mod the
+    card count}``; None without CUDA (the engine then raises, as
+    ``resolve_device`` does for every engine without a device)."""
+    if not torch.cuda.is_available():
+        return None
+    local = os.environ.get("LOCAL_RANK")
+    return f"cuda:{int(local) if local is not None else rank % torch.cuda.device_count()}"
+
+
 class MultihostEngine(DeviceEngine):
     """DeviceEngine whose lane work is scattered over processes.
 
@@ -73,9 +86,14 @@ class MultihostEngine(DeviceEngine):
     gathered and the seconds of each phase's exchange in the last run.
     """
 
-    def __init__(self, *, max_window_size: int = MAX_WINDOW_SIZE, local_mesh=None, **kw):
-        super().__init__(max_window_size=max_window_size, mesh=local_mesh, **kw)
-        self.nproc, self.pid = _job()
+    def __init__(self, *, max_window_size: int = MAX_WINDOW_SIZE, local_mesh=None, device=None, **kw):
+        # With neither a device nor a local mesh, each process takes its
+        # own card, as each JAX process runs on its own local devices.
+        nproc, pid = _job()
+        if device is None and local_mesh is None:
+            device = rank_device(pid)
+        super().__init__(max_window_size=max_window_size, mesh=local_mesh, device=device, **kw)
+        self.nproc, self.pid = nproc, pid
         self.exchange_stats: dict = {}
 
     # -- scattered dispatch -------------------------------------------------

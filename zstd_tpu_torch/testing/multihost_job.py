@@ -4,8 +4,8 @@
 :func:`run_job` starts ``nproc`` worker processes (this module with
 ``--worker``), each of which joins a gloo process group on
 ``127.0.0.1`` (``parallel.multihost.initialize``), decodes one ``.zst``
-file with ``MultihostEngine`` on the given device (with ``--local-mesh
-N``, lane-sharded over N copies of it), and prints one JSON line: its
+file with ``MultihostEngine`` on its device (with ``--local-mesh N``,
+lane-sharded over N copies of it), and prints one JSON line: its
 output's SHA-256 and whether it equals the expected bytes, its engine
 counters, launches and launches by mesh position from its first decode,
 its bins of both phases (lanes and symbols or sequences, its own and
@@ -42,20 +42,24 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_job(input_path, expect_path=None, *, nproc: int = 2, device: str = "cuda:0",
+def run_job(input_path, expect_path=None, *, nproc: int = 2, device: str | None = None,
             timeout: float = 300.0, threads: int | None = None, reps: int = 1,
             local_mesh: int | None = None) -> list[dict]:
-    """Run the job; returns each worker's JSON result in rank order.
-    Raises RuntimeError when a worker fails or times out."""
+    """Run the job, every rank on ``device`` when one is named (``"cpu"``
+    included), else each on its own card (``MultihostEngine`` resolves it
+    through ``multihost.rank_device``); returns each worker's JSON result
+    in rank order.  Raises RuntimeError when a worker fails or times out."""
     port = free_port()
     cmd = [sys.executable, "-m", "zstd_tpu_torch.testing.multihost_job", "--worker",
-           "--nproc", str(nproc), "--port", str(port), "--input", str(input_path), "--device", device]
+           "--nproc", str(nproc), "--port", str(port), "--input", str(input_path)]
     if expect_path is not None:
         cmd += ["--expect", str(expect_path)]
     if threads is not None:
         cmd += ["--threads", str(threads)]
     if local_mesh is not None:
         cmd += ["--local-mesh", str(local_mesh)]
+    if device is not None:
+        cmd += ["--device", str(device)]
     cmd += ["--reps", str(reps)]
     procs = [
         subprocess.Popen([*cmd, "--rank", str(r)], cwd=REPO, stdout=subprocess.PIPE,
@@ -108,7 +112,8 @@ def _worker(args) -> dict:
     multihost.initialize(f"127.0.0.1:{args.port}", args.nproc, args.rank)
     try:
         if args.local_mesh:
-            eng = multihost.MultihostEngine(local_mesh=make_mesh(args.local_mesh, device=args.device))
+            dev = args.device or multihost.rank_device(args.rank)
+            eng = multihost.MultihostEngine(local_mesh=make_mesh(args.local_mesh, device=dev))
         else:
             eng = multihost.MultihostEngine(device=args.device)
         fns = {"literals": literals.decode_literals, "sequences": sequences.decode_sequences,
@@ -151,7 +156,7 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--input", required=True)
     ap.add_argument("--expect")
-    ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--device", help="default: the rank's own card (multihost.rank_device)")
     ap.add_argument("--threads", type=int)
     ap.add_argument("--reps", type=int, default=1)
     ap.add_argument("--local-mesh", type=int)
