@@ -108,6 +108,15 @@ Phases, each fatal on failure (no phase's error is caught):
    fuzz harness, ``python -m zstd_tpu_torch.testing.fuzz --engine
    --iterations 100 --seed 0``, on the card.  Any other exception, other
    bytes or a CUDA error fails the run.
+16. The port bench and the scaling bench on the card, each in a process
+   of its own: ``python -m zstd_tpu_torch.bench`` (its defaults: 24 MB at
+   level 3 on both routes, 8 MiB at level 19, the encoder table, the
+   bars) must exit 0 with one JSON line whose main route, device LZ77
+   route and level-19 mix had no oracle fallback, that names this card,
+   has an idle share in [0, 1] and the pinned transfer rates and the
+   libzstd bar; its median GB/s is logged beside phase 4's.  Then
+   ``python -m zstd_tpu_torch.testing.scaling_bench`` (1 and 2
+   processes, each rank on its own card: both on ``cuda:0`` with one).
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -130,7 +139,6 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor peak, the table's float32 rate
 # loops (csrc/literals.cu per symbol, csrc/sequences.cu per sequence).
 LIT_OPS_PER_SYMBOL = 40
 SEQ_OPS_PER_SEQUENCE = 150
-PROFILE_TRIES = 3  # traces taken before a profiled kernel counts as missing
 
 
 def log(msg: str) -> None:
@@ -141,14 +149,6 @@ def check(ok: bool, what) -> None:
     """Fail the run (a check that survives ``python -O``)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def timed_once(fn):
@@ -367,7 +367,7 @@ def compact_phase(inputs: list, up, dev) -> dict:
     from zstd_tpu_torch.kernels import compact, sequences
     from zstd_tpu_torch.kernels.bitbuf import to_i32
     from zstd_tpu_torch.kernels.entropy2 import _pack_words, _seq_word_plane
-    from zstd_tpu_torch.observability import event_ms
+    from zstd_tpu_torch.observability import event_ms, profiled_kernels
 
     res, err = None, 0
     for g, x in enumerate(inputs):
@@ -389,8 +389,8 @@ def compact_phase(inputs: list, up, dev) -> dict:
         # A launch takes a few microseconds, less than a CUDA graph replay
         # takes to submit, so device time comes from the profiler.
         ms, lib_ms = event_ms(run_compact, 20), event_ms(library, 20)
-        dev_ms = sum(profiled_kernels(run_compact, "compact_kernel", 20)[0].values())
-        lib_dev_ms = sum(profiled_kernels(library, "", 20)[0].values())
+        dev_ms = sum(profiled_kernels(run_compact, "compact_kernel", 20, log)[0].values())
+        lib_dev_ms = sum(profiled_kernels(library, "", 20, log)[0].values())
         rows, L = plane.shape
         log(f"compact group {g}: lanes={L} words={n_w} plane={(rows, L)} max_abs_err={g_err} "
             f"ms={ms:.4f} device_ms={dev_ms:.4f} library_ms={lib_ms:.4f} library_device_ms={lib_dev_ms:.4f} "
@@ -418,56 +418,13 @@ def counters(device_execute: bool = False):
     return fns
 
 
-def profiled_kernels(run, key: str, reps: int = 1) -> tuple[dict, int, list]:
-    """Device milliseconds per call of ``run`` by CUDA kernel whose name
-    holds ``key`` (the name's part after ``key``; every device event for
-    an empty key), over ``reps`` calls, the launches per call, and each
-    launch's milliseconds in order, from ``torch.profiler``.  A trace can
-    come back without the device events of a window this short (CUPTI
-    flushes its activity buffers late), so a trace that holds no kernel
-    of ``key`` is taken again, up to ``PROFILE_TRIES`` times in all."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize()
-    name = lambda k: k.split(key, 1)[1].split("(", 1)[0] if key else k  # noqa: E731
-    for attempt in range(1, PROFILE_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                run()
-            torch.cuda.synchronize()
-        split, launches = {}, 0
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA and key in ev.key:
-                split[name(ev.key)] = ev.self_device_time_total / 1e3 / reps
-                launches += ev.count
-        if split:
-            break
-        log(f"profile: trace {attempt} of {PROFILE_TRIES} holds no {key or 'device'} kernel")
-    check(split, f"profile: no {key} kernel on the device in {PROFILE_TRIES} traces")
-    each = sorted((ev.time_range.start, name(ev.key), ev.time_range.elapsed_us() / 1e3)
-                  for ev in prof.events() if ev.device_type == DeviceType.CUDA and key in ev.key)
-    return split, launches // reps, [(n, ms) for _t, n, ms in each]
-
-
-def profiler_warm_up() -> None:
-    """Start the profiler's CUDA tracing before the first trace that is
-    read: the first trace of a process is the one that can lose its
-    device events while CUPTI starts.  Traces a fill of a small tensor
-    until one trace holds its kernel."""
-    import torch
-
-    x = torch.empty(1 << 20, device="cuda")
-    profiled_kernels(lambda: x.fill_(1.0), "", 4)
-
-
 def lz77_device_split(run) -> dict:
     """Device milliseconds of one LZ77 wrapper call by kernel (init,
     expand, jump, gather; ``torch.profiler``) and their sum, the number of
     CUDA launches the profiler saw, and each jump round's milliseconds."""
-    split, launches, each = profiled_kernels(run, "lz77_")
+    from zstd_tpu_torch.observability import profiled_kernels
+
+    split, launches, each = profiled_kernels(run, "lz77_", log=log)
     rounds = [round(ms, 4) for name, ms in each if name == "jump"]
     return {"profiler_ms": sum(split.values()), "by_kernel_ms": split, "profiler_launches": launches,
             "jump_round_ms": rounds}
@@ -717,34 +674,28 @@ def profile_phase(comp: bytes, wall_s: float, kres: dict) -> dict:
     phase 3's ``device_ms`` (CUDA-graph replays) over the frame groups."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from zstd_tpu_torch import DeviceEngine
+    from zstd_tpu_torch.observability import device_ms_by_op, holds_kernels, idle_share, traced
 
     eng = DeviceEngine()
     eng.decompress(comp)
     keys = (("literals", "literals_kernel"), ("sequences", "sequences_kernel<false>"))
-    for attempt in range(1, PROFILE_TRIES + 1):  # as in profiled_kernels
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.decompress(comp)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        seen = {ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
-        if all(any(key in k for k in seen) for _name, key in keys):
-            break
-        log(f"profile: trace {attempt} of {PROFILE_TRIES} lacks a lane kernel")
-    # Device-side events only (kernels, copies): a host op's entry also
-    # carries the device time of what it launched.
-    dev_ms = {
-        ev.key: ev.self_device_time_total / 1e3
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-    }
+    walls = []
+
+    def decode():
+        t0 = time.perf_counter()
+        eng.decompress(comp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    prof = traced(decode, holds_kernels(*(key for _name, key in keys)), "lacks a lane kernel", log)
+    prof_wall = walls[-1]
+    dev_ms = device_ms_by_op(prof)
     busy = sum(dev_ms.values())
     top = dict(sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10])
     res = {"device_busy_ms": busy, "profiled_wall_s": prof_wall, "wall_s": wall_s,
-           "idle_share": (1 - busy / 1e3 / wall_s) if busy else None, "top_device_ms": top}
+           "idle_share": idle_share(busy, wall_s), "top_device_ms": top}
     log("profile: " + json.dumps(res))
     for name, key in keys:
         evs = [ev for ev in prof.key_averages()
@@ -821,6 +772,7 @@ def sharded_phase(comp: bytes, raw: bytes, meshes: dict, dev) -> dict:
 
     from zstd_tpu_torch import DeviceEngine
     from zstd_tpu_torch.format.block_table import build_batch_plan, input_words
+    from zstd_tpu_torch.observability import profiled_kernels
     from zstd_tpu_torch.parallel.dist import ShardedEngine
     from zstd_tpu_torch.testing.lanes import engine_lanes, lane_diffs
 
@@ -880,7 +832,7 @@ def sharded_phase(comp: bytes, raw: bytes, meshes: dict, dev) -> dict:
         res.update(mesh_calls=stats["mesh_calls"], launches=launches, wall_s=wall, walls_s=times,
                    gbs=len(raw) / wall / 1e9, wall_split_s=stats["wall_s"])
         if dev.type == "cuda":  # device time of one decode, by kernel (torch.profiler)
-            split = profiled_kernels(lambda: eng.decompress(comp), "")[0]
+            split = profiled_kernels(lambda: eng.decompress(comp), "", log=log)[0]
             res["device_ms"] = {
                 "busy": sum(split.values()),
                 "sequences": sum(v for k, v in split.items() if "sequences_kernel" in k),
@@ -1130,6 +1082,44 @@ def corrupt_phase(raw: bytes, dev) -> dict:
     return res
 
 
+def _module_line(module: str, timeout: float) -> dict:
+    """The one stdout line of ``python -m module`` run from the checkout,
+    which must exit 0; its stderr is logged."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module], cwd=REPO, capture_output=True,
+                         text=True, timeout=timeout)
+    for ln in res.stderr.splitlines()[-40:]:
+        log(f"  {module}: {ln}")
+    check(res.returncode == 0, f"{module} exited {res.returncode}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    check(len(lines) == 1, f"{module} printed {len(lines)} lines, not one JSON line: {lines[-3:]}")
+    log(f"{module} ({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    return json.loads(lines[0])
+
+
+def bench_phase(card: str, main_gbs: float) -> dict:
+    """Phase 16: the port bench and the scaling bench on the card."""
+    import torch
+
+    line = _module_line("zstd_tpu_torch.bench", 600)
+    d = line["detail"]
+    fallbacks = [d["fallback_frames"], d["device_route"]["fallback_frames"],
+                 d["highlevel_mix"]["fallback_frames"]]
+    check(fallbacks == [0, 0, 0], f"bench: oracle fallbacks (main, device route, level 19): {fallbacks}")
+    name, power = card.rsplit(", ", 1)
+    check(d["device"]["name"] == torch.cuda.get_device_name(0) and d["device"]["power_limit"] == power,
+          f"bench: device {d['device']}, card {card}")
+    check(d["idle_share"] is not None and 0 <= d["idle_share"] <= 1, f"bench: idle share {d['idle_share']}")
+    bars = [d["transfers"]["h2d_pinned_GBs"], d["transfers"]["d2h_pinned_GBs"], d["libzstd_serial_gbs"],
+            d["vs_libzstd_serial"], d["libzstd_reused_gbs"]]
+    check(None not in bars, f"bench: a pinned probe or the libzstd bar is null: {bars}")
+    log(f"bench median GB/s {line['value']:.4f} (best {d['best_gbs']:.4f}, worst {d['worst_gbs']:.4f}); "
+        f"phase 4 median {main_gbs:.4f}; device LZ77 route {d['device_route']['gbs']:.4f}; "
+        f"libzstd one thread {d['libzstd_serial_gbs']:.4f}, into a reused buffer {d['libzstd_reused_gbs']:.4f}")
+    scaling = _module_line("zstd_tpu_torch.testing.scaling_bench", 600)
+    return {"bench": line, "scaling": scaling}
+
+
 def main() -> int:
     import torch
 
@@ -1144,6 +1134,7 @@ def main() -> int:
 
     from zstd_tpu_torch import native
     from zstd_tpu_torch.kernels import _build
+    from zstd_tpu_torch.observability import card_line, profiler_warm_up
     from zstd_tpu_torch.testing import libzstd
     from zstd_tpu_torch.testing.corpus import build_corpus, compress_chunks
 
@@ -1156,7 +1147,7 @@ def main() -> int:
     log(f"SM clock (now, max): {clocks.stdout.strip().splitlines()[0]}")
     log(f"kernel build: {_build.build_all():.1f} s (nvcc, sm_90a)")
     check(native.available(), "host C routines failed to build")
-    profiler_warm_up()
+    profiler_warm_up(log)
 
     log(f"libzstd: {ctypes.util.find_library('zstd')}")
     t0 = time.perf_counter()
@@ -1192,6 +1183,7 @@ def main() -> int:
     measure_phase(comp, raw, dev)
     encoder_phase(hl_raw, dev)
     corrupt_phase(raw, dev)
+    bench_phase(card, main["gbs"])
     log("level3_24MB walls, s (medians; the default route from phase 4): default route "
         f"{main['wall_s']:.4f}, one-plan route (all_cards) {sharded['all_cards']['wall_s']:.4f}, "
         f"cuda0_x2 {sharded['cuda0_x2']['wall_s']:.4f}, multihost per process "

@@ -20,10 +20,12 @@ Layout:
 * ``zstd_tpu_torch.native``   — ctypes bindings of the host C routines
 * ``zstd_tpu_torch.testing``  — libzstd oracle, the bench corpus, the
   LZ77 spike's copy program, lane comparisons, a multi-process job,
-  the fuzz harness
+  the fuzz harness, the multi-process scaling bench
 * ``zstd_tpu_torch.encode``   — the host encoder (``compress``)
 * ``zstd_tpu_torch.cli``      — command line (``python -m zstd_tpu_torch.cli``)
 * ``zstd_tpu_torch.observability`` — run reports, ``torch.profiler`` hook
+  and reads (device time by kernel, idle share)
+* ``zstd_tpu_torch.bench``    — the benchmark (``python -m zstd_tpu_torch.bench``)
 * ``csrc/``                   — CUDA (``*.cu``) and host C sources
 """
 

@@ -3,7 +3,10 @@
 The reference's only introspection is an eprintln of the checksum
 (frame.rs:245-249) and the ``--info`` dump.  Here: per-stage wall clock,
 achieved GB/s, lane/fallback counters, and an optional ``torch.profiler``
-trace around the decode, exported as a Chrome trace.
+trace around the decode, exported as a Chrome trace; CUDA-event and
+CUDA-graph timers; and the profiler reads that ``chip_smoke.py`` and the
+bench share (device time by kernel, the device's idle share, the retake
+of a trace that lost its device events).
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
+import sys
 from dataclasses import dataclass, field
 
 import torch
@@ -132,3 +137,135 @@ def device_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _pci_address(bus_id: str):
+    """(domain, bus, device) of an ``nvidia-smi`` ``pci.bus_id`` such as
+    ``00000000:19:00.0``; None where it is hidden (``[N/A]``)."""
+    try:
+        domain, bus, device = bus_id.split(":")
+        return int(domain, 16), int(bus, 16), int(device.split(".")[0], 16)
+    except ValueError:
+        return None
+
+
+def card_line(index: int | None = None) -> str:
+    """CUDA card ``index``'s (default: the current card's) name and power
+    limit as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them (e.g. ``NVIDIA H100 80GB HBM3, 700.00 W``).  The row is
+    the one at the card's PCI address: ``nvidia-smi`` lists cards in PCI
+    order, CUDA numbers them fastest first and ``CUDA_VISIBLE_DEVICES``
+    renumbers them, so a row index can name another card.  Where
+    ``nvidia-smi`` hides every address, as in a container, the row at
+    ``index`` is taken."""
+    index = torch.cuda.current_device() if index is None else index
+    props = torch.cuda.get_device_properties(index)
+    want = (props.pci_domain_id, props.pci_bus_id, props.pci_device_id)
+    rows = [
+        row.split(", ", 1)
+        for row in subprocess.run(
+            ["nvidia-smi", "--query-gpu=pci.bus_id,name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()
+    ]
+    addresses = [_pci_address(bus_id) for bus_id, _ in rows]
+    if want in addresses:
+        return rows[addresses.index(want)][1]
+    if all(a is None for a in addresses):
+        return rows[index][1]
+    raise RuntimeError(f"nvidia-smi lists no card at PCI {want}: {rows}")
+
+
+# -- torch.profiler: device time by kernel and the device's idle share -------
+
+PROFILE_TRIES = 3  # traces taken before a profiled kernel counts as missing
+
+
+def _stderr(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def traced(run, holds, lacks: str, log=_stderr):
+    """A ``torch.profiler`` trace (host and CUDA activities) of one call of
+    ``run`` followed by a synchronisation.  A trace can come back without
+    the device events of its window (CUPTI flushes its activity buffers
+    late, and a process's first trace can lose them while CUPTI starts),
+    so a trace for which ``holds(prof)`` is false is taken again, up to
+    ``PROFILE_TRIES`` traces in all, each retake logged as ``profile:
+    trace i of N <lacks>``.  Raises RuntimeError when no trace holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        if holds(prof):
+            return prof
+        log(f"profile: trace {attempt} of {PROFILE_TRIES} {lacks}")
+    raise RuntimeError(f"profile: every one of {PROFILE_TRIES} traces {lacks}")
+
+
+def _device_events(prof) -> list:
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+
+
+def holds_kernels(*keys: str):
+    """A ``traced`` test: the trace has a device event whose name holds
+    each of ``keys`` (any device event for an empty key)."""
+    return lambda prof: all(any(k in ev.key for ev in _device_events(prof)) for k in keys)
+
+
+def device_ms_by_op(prof) -> dict:
+    """Device milliseconds by name, device-side events only (kernels,
+    copies): a host op's entry also carries the device time of what it
+    launched, so summing every entry would count that time twice."""
+    return {
+        ev.key: ev.self_device_time_total / 1e3
+        for ev in _device_events(prof)
+        if ev.self_device_time_total > 0
+    }
+
+
+def idle_share(busy_ms: float, wall_s: float) -> float | None:
+    """The share of ``wall_s`` in which the device ran nothing, given its
+    busy milliseconds over the same work; None when nothing was seen."""
+    return (1 - busy_ms / 1e3 / wall_s) if busy_ms else None
+
+
+def profiled_kernels(run, key: str, reps: int = 1, log=_stderr) -> tuple[dict, int, list]:
+    """Device milliseconds per call of ``run`` by CUDA kernel whose name
+    holds ``key`` (the name's part after ``key``; every device event for
+    an empty key), over ``reps`` calls after one unprofiled call, the
+    launches per call, and each launch's milliseconds in order, from
+    ``torch.profiler`` (``traced``: a trace that holds no kernel of
+    ``key`` is taken again)."""
+    from torch.autograd import DeviceType
+
+    run()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(reps):
+            run()
+
+    prof = traced(calls, holds_kernels(key), f"holds no {key or 'device'} kernel", log)
+    name = lambda k: k.split(key, 1)[1].split("(", 1)[0] if key else k  # noqa: E731
+    split, launches = {}, 0
+    for ev in _device_events(prof):
+        if key in ev.key:
+            split[name(ev.key)] = ev.self_device_time_total / 1e3 / reps
+            launches += ev.count
+    each = sorted((ev.time_range.start, name(ev.key), ev.time_range.elapsed_us() / 1e3)
+                  for ev in prof.events() if ev.device_type == DeviceType.CUDA and key in ev.key)
+    return split, launches // reps, [(n, ms) for _t, n, ms in each]
+
+
+def profiler_warm_up(log=_stderr) -> None:
+    """Start the profiler's CUDA tracing before the first trace that is
+    read: the first trace of a process is the one that can lose its
+    device events while CUPTI starts.  Traces a fill of a small tensor
+    until one trace holds its kernel."""
+    x = torch.empty(1 << 20, device="cuda")
+    profiled_kernels(lambda: x.fill_(1.0), "", 4, log)

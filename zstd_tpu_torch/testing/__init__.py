@@ -1,1 +1,2 @@
-"""Test and benchmark helpers: the libzstd oracle and the bench corpus."""
+"""Test and benchmark helpers: the libzstd oracle, the bench corpus and
+the multi-process scaling bench."""

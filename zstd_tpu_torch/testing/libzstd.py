@@ -45,6 +45,16 @@ def _lib() -> ctypes.CDLL:
     lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
     lib.ZSTD_getFrameContentSize.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
     lib.ZSTD_versionNumber.restype = ctypes.c_uint
+    lib.ZSTD_createDCtx.restype = ctypes.c_void_p
+    lib.ZSTD_freeDCtx.argtypes = [ctypes.c_void_p]
+    lib.ZSTD_decompressDCtx.restype = ctypes.c_size_t
+    lib.ZSTD_decompressDCtx.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+    ]
     # Advanced one-shot API for parameter control (block size, checksum, ...).
     lib.ZSTD_createCCtx.restype = ctypes.c_void_p
     lib.ZSTD_freeCCtx.argtypes = [ctypes.c_void_p]
@@ -132,6 +142,31 @@ def decompress(data: bytes, max_output: int | None = None) -> bytes:
     dst = ctypes.create_string_buffer(max_output)
     n = _check(lib, lib.ZSTD_decompress(dst, max_output, data, len(data)))
     return dst.raw[:n]
+
+
+class Decoder:
+    """libzstd decode into one output buffer and one DCtx, both made once,
+    so that a call allocates and copies nothing: the bar of libzstd's own
+    speed on one thread, where :func:`decompress` also pays for a fresh
+    zero-filled buffer and two copies of it a call."""
+
+    def __init__(self, capacity: int):
+        self._lib = _lib()
+        self.buffer = ctypes.create_string_buffer(capacity)
+        self._dctx = self._lib.ZSTD_createDCtx()
+        if not self._dctx:
+            raise RuntimeError("ZSTD_createDCtx failed")
+
+    def decode(self, data: bytes) -> int:
+        """Decode every frame of ``data`` into :attr:`buffer`; returns the
+        bytes written."""
+        return _check(self._lib, self._lib.ZSTD_decompressDCtx(
+            self._dctx, self.buffer, len(self.buffer), data, len(data)))
+
+    def close(self) -> None:
+        if self._dctx:
+            self._lib.ZSTD_freeDCtx(self._dctx)
+            self._dctx = None
 
 
 def version() -> int:

@@ -11,7 +11,8 @@ counters, launches and launches by mesh position from its first decode,
 its bins of both phases (lanes and symbols or sequences, its own and
 every process's), the lanes it launched, the bytes and seconds of the
 two exchanges, and its decode walls: the first (cold) and, with
-``--reps N``, the median of the N - 1 after it.  A worker that exits
+``--reps N``, the median of the N - 1 after it, and the least kernel
+phase (``stats.wall_s["kernels"]``) of those N - 1.  A worker that exits
 non-zero or outlives its timeout fails the job: every worker is killed
 and :func:`run_job` raises.
 
@@ -120,13 +121,14 @@ def _worker(args) -> dict:
                "compact": compact.compact_lanes}
         for f in fns.values():
             f.launches = 0
-        walls = []
+        walls, kernels = [], []
         for i in range(args.reps):
             t0 = time.perf_counter()
             got = eng.decompress(data)
             if eng.device.type == "cuda":
                 torch.cuda.synchronize(eng.device)
             walls.append(time.perf_counter() - t0)
+            kernels.append(eng.stats.wall_s["kernels"])
             if i == 0:
                 out, stats = got, eng.stats
                 launches = {k: f.launches for k, f in fns.items()}
@@ -137,6 +139,7 @@ def _worker(args) -> dict:
             "exact": None if args.expect is None else out == pathlib.Path(args.expect).read_bytes(),
             "all_reps_equal": got == out,
             "cold_wall_s": walls[0], "wall_s": statistics.median(walls[1:] or walls), "walls_s": walls,
+            "kernels_s": min(kernels[1:] or kernels),
             "launches": launches, "kernel_calls": stats.kernel_calls, "mesh_calls": stats.mesh_calls,
             "fallback_frames": stats.fallback_frames, "fallback_reasons": stats.fallback_reasons,
             "lit_lanes_run": stats.lit_lanes_run, "seq_lanes_run": stats.seq_lanes_run,
