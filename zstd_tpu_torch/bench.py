@@ -35,7 +35,7 @@ Steps, each timed window after the build and its route's warm-up:
    the bench (``bench.py`` only reports it).  ``lit_lanes``,
    ``seq_lanes``, ``kernel_calls`` and ``wall_s`` are the last timed
    decode's (the pipelined route's per-group plans: ``wall_s`` holds
-   prepass, kernels, assembly and total).  ``bench.py`` takes
+   prepass, kernels, assembly, total and the engine's ``STEPS``).  ``bench.py`` takes
    ``kernel_calls`` and ``wall_s`` from its ``measure_phases`` decode
    instead (the one-plan route, with its dispatch and fetch keys), so
    these two keys do not compare across the packages.

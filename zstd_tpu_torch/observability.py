@@ -1,9 +1,11 @@
 """Observability: structured per-run reports and profiler hooks.
 
 The reference's only introspection is an eprintln of the checksum
-(frame.rs:245-249) and the ``--info`` dump.  Here: per-stage wall clock,
-achieved GB/s, lane/fallback counters, and an optional ``torch.profiler``
-trace around the decode, exported as a Chrome trace; CUDA-event and
+(frame.rs:245-249) and the ``--info`` dump.  Here: per-step wall clock
+(``span``, summed into ``EngineStats.wall_s`` and, while a profiler
+records, a ``zstd_tpu_torch.<step>`` span in its trace), achieved GB/s,
+lane/fallback counters, and an optional ``torch.profiler`` trace around
+the decode, exported as a Chrome trace; CUDA-event and
 CUDA-graph timers; and the profiler reads that ``chip_smoke.py`` and the
 bench share (device time by kernel, the device's idle share, the retake
 of a trace that lost its device events).
@@ -16,9 +18,32 @@ import json
 import os
 import subprocess
 import sys
+import time
 from dataclasses import dataclass, field
 
 import torch
+
+
+SPAN_PREFIX = "zstd_tpu_torch."  # profiler name of a span: prefix + step
+
+
+@contextlib.contextmanager
+def span(stats, name: str):
+    """Add the block's ``time.perf_counter`` seconds to
+    ``stats.wall_s[name]`` (summed over a call's frame groups).  While a
+    ``torch.profiler`` records, checked once at entry, the block is also a
+    ``record_function`` span named ``SPAN_PREFIX + name``, on the clock of
+    the trace's device events; otherwise no ``record_function`` is made."""
+    t0 = time.perf_counter()
+    try:
+        if torch.autograd.profiler._is_profiler_enabled:
+            with torch.profiler.record_function(SPAN_PREFIX + name):
+                yield
+        else:
+            yield
+    finally:
+        wall = stats.wall_s
+        wall[name] = wall.get(name, 0.0) + (time.perf_counter() - t0)
 
 
 @dataclass

@@ -80,6 +80,7 @@ from ..kernels import literals as lit_kernel
 from ..kernels import lz77 as lz77_kernel
 from ..kernels import lz77_device
 from ..kernels import sequences as seq_kernel
+from ..observability import span
 from ..ops.lz77 import execute_sequences
 from ..ops.sequence_codes import INITIAL_REPEAT_OFFSETS
 from ..utils.bits import ForwardByteCursor
@@ -90,6 +91,16 @@ from .oracle import decode_frame
 _log = logging.getLogger(__name__)
 
 GROUP_BYTES = 1 << 20  # compressed bytes per pipelined frame group
+
+# The steps of a decode call that ``decompress_with_stats`` times into
+# ``EngineStats.wall_s`` (``observability.span``): the input words and
+# their upload; the frame parse and the batch plan (``prepass`` = parse +
+# plan); the host's lane columns, uploads, launches and queued copies
+# back; the wait on the card; the lanes' unpacking; the wide retry;
+# assembly; and the output's copy to ``bytes``, taken after ``total``.
+# ``kernels`` is the call less prepass and assembly: words, launch, wait,
+# unpack and retry lie inside it.
+STEPS = ("words", "parse", "plan", "launch", "wait", "unpack", "retry", "assembly", "output")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -154,6 +165,8 @@ class EngineStats:
     retry_lanes: int = 0
     upload_bytes: int = 0
     fetch_bytes: int = 0
+    # Seconds of the last call: each of STEPS, prepass, kernels and total
+    # (and measure_phases' four phases).
     wall_s: dict = field(default_factory=dict)
 
     def as_dict(self) -> dict:
@@ -459,22 +472,44 @@ class DeviceEngine:
     def _run_literals_wide(self, plan: BatchPlan, subset=None):
         """The literals phase alone over ``subset`` (every lane by
         default): dispatch, wait, finish.  Returns (outs, ok)."""
-        outs, ok, pending = self._dispatch_literals(plan, subset)
-        pending = self._fetch_pending(pending)
-        _wait(self._record_events())
-        self._finish_literals(plan, pending, outs, ok)
+        stats = self.stats
+        with span(stats, "launch"):
+            outs, ok, pending = self._dispatch_literals(plan, subset)
+            pending = self._fetch_pending(pending)
+            evs = self._record_events()
+        with span(stats, "wait"):
+            _wait(evs)
+        with span(stats, "unpack"):
+            self._finish_literals(plan, pending, outs, ok)
         return outs, ok
 
     def _run_sequences_wide(self, plan: BatchPlan, subset=None):
         """The sequences phase alone over ``subset``: dispatch, wait,
         finish, then the wide retry of the subset's failed lanes (lanes
         outside it stay ok).  Returns (outs, ok)."""
-        outs, ok, pending = self._dispatch_sequences(plan, subset)
-        pending = self._fetch_pending(pending)
-        _wait(self._record_events())
-        self._finish_sequences(plan, pending, outs, ok)
-        self._retry_sequences(plan, outs, ok)
+        stats = self.stats
+        with span(stats, "launch"):
+            outs, ok, pending = self._dispatch_sequences(plan, subset)
+            pending = self._fetch_pending(pending)
+            evs = self._record_events()
+        with span(stats, "wait"):
+            _wait(evs)
+        with span(stats, "unpack"):
+            self._finish_sequences(plan, pending, outs, ok)
+        with span(stats, "retry"):
+            self._retry_sequences(plan, outs, ok)
         return outs, ok
+
+    def _finish_both(self, plan, lit, seq, lp, sp) -> None:
+        """Unpack both phases' fetched lanes (``lp``, ``sp``) into ``lit``
+        and ``seq``, each (outs, ok), and retry the failed sequence lanes
+        wide."""
+        stats = self.stats
+        with span(stats, "unpack"):
+            self._finish_literals(plan, lp, *lit)
+            self._finish_sequences(plan, sp, *seq)
+        with span(stats, "retry"):
+            self._retry_sequences(plan, *seq)
 
     def _run_both(self, plan: BatchPlan):
         """Both phases over one plan, finished and retried:
@@ -491,31 +526,37 @@ class DeviceEngine:
         the launches queued before it: ``upload_wait`` is an upper bound
         on the upload share and ``device_compute`` a lower bound on the
         kernels', as in the JAX engine."""
+        stats = self.stats
         measure = self.measure_phases
         self._upload_marks = {}
         t0 = time.perf_counter()
-        lit_outs, lit_ok, lp = self._dispatch_literals(plan)
-        seq_outs, seq_ok, sp = self._dispatch_sequences(plan)
+        with span(stats, "launch"):
+            lit_outs, lit_ok, lp = self._dispatch_literals(plan)
+            seq_outs, seq_ok, sp = self._dispatch_sequences(plan)
+            if measure:
+                launched = self._record_events()
         if measure:
-            launched = self._record_events()
             t1 = time.perf_counter()
-            _wait(self._upload_marks.values())
-            tu = time.perf_counter()
-            _wait(launched)
+            with span(stats, "wait"):
+                _wait(self._upload_marks.values())
+                tu = time.perf_counter()
+                _wait(launched)
             t2 = time.perf_counter()
-        lp, sp = self._fetch_pending(lp), self._fetch_pending(sp)
-        _wait(self._record_events())
+        with span(stats, "launch"):
+            lp, sp = self._fetch_pending(lp), self._fetch_pending(sp)
+            evs = self._record_events()
+        with span(stats, "wait"):
+            _wait(evs)
         if measure:
-            self.stats.wall_s.update(
+            stats.wall_s.update(
                 dispatch=t1 - t0,
                 upload_wait=tu - t1,
                 device_compute=t2 - tu,
                 fetch=time.perf_counter() - t2,
             )
-        self._finish_literals(plan, lp, lit_outs, lit_ok)
-        self._finish_sequences(plan, sp, seq_outs, seq_ok)
-        self._retry_sequences(plan, seq_outs, seq_ok)
-        return (lit_outs, lit_ok), (seq_outs, seq_ok)
+        lit, seq = (lit_outs, lit_ok), (seq_outs, seq_ok)
+        self._finish_both(plan, lit, seq, lp, sp)
+        return lit, seq
 
     # -- assembly -------------------------------------------------------------
 
@@ -663,30 +704,30 @@ class DeviceEngine:
     def _iter_pipelined(self, data, words):
         """Parse frame groups and dispatch each group's launches as soon as
         it parses; then finish and yield the groups in order, each once
-        its CUDA event has fired.  Parse seconds accumulate in
-        ``self._pipeline_parse_s``."""
-        self._pipeline_parse_s = 0.0
+        its CUDA event has fired."""
+        stats = self.stats
         staged = []
         groups = frame_groups(data, self.max_window_size)
         while True:
-            tp = time.perf_counter()
-            frames = next(groups, None)
+            with span(stats, "parse"):
+                frames = next(groups, None)
             if frames is None:
                 break
-            plan = build_batch_plan(
-                data, max_window_size=self.max_window_size, words=words, frames=frames
-            )
-            self._pipeline_parse_s += time.perf_counter() - tp
-            lit_outs, lit_ok, lp = self._dispatch_literals(plan)
-            seq_outs, seq_ok, sp = self._dispatch_sequences(plan)
-            lp, sp = self._fetch_pending(lp), self._fetch_pending(sp)
-            staged.append((plan, lit_outs, lit_ok, seq_outs, seq_ok, lp, sp, self._record_events()))
-        for plan, lit_outs, lit_ok, seq_outs, seq_ok, lp, sp, evs in staged:
-            _wait(evs)
-            self._finish_literals(plan, lp, lit_outs, lit_ok)
-            self._finish_sequences(plan, sp, seq_outs, seq_ok)
-            self._retry_sequences(plan, seq_outs, seq_ok)
-            yield plan, lit_outs, lit_ok, seq_outs, seq_ok
+            with span(stats, "plan"):
+                plan = build_batch_plan(
+                    data, max_window_size=self.max_window_size, words=words, frames=frames
+                )
+            with span(stats, "launch"):
+                lit_outs, lit_ok, lp = self._dispatch_literals(plan)
+                seq_outs, seq_ok, sp = self._dispatch_sequences(plan)
+                lp, sp = self._fetch_pending(lp), self._fetch_pending(sp)
+                evs = self._record_events()
+            staged.append((plan, (lit_outs, lit_ok), (seq_outs, seq_ok), lp, sp, evs))
+        for plan, lit, seq, lp, sp, evs in staged:
+            with span(stats, "wait"):
+                _wait(evs)
+            self._finish_both(plan, lit, seq, lp, sp)
+            yield plan, *lit, *seq
 
     def decompress_with_stats(
         self,
@@ -697,13 +738,15 @@ class DeviceEngine:
     ) -> bytes:
         stats = self.stats = self._new_stats()
         stats.bytes_in = len(data)
+        wall = stats.wall_s
+        wall.update(dict.fromkeys(STEPS, 0.0))
         self._dev_cache = None
 
         t0 = time.perf_counter()
-        words = input_words(data)
-        self._words_dev = {dev: self._upload(words, dev) for dev in self._devices()}
+        with span(stats, "words"):
+            words = input_words(data)
+            self._words_dev = {dev: self._upload(words, dev) for dev in self._devices()}
         out = bytearray()
-        asm_s = 0.0
         done = False
         # The frame-group pipeline runs on one device, outside measure mode,
         # for this class's own _run_both: a mesh, measure_phases and the
@@ -717,25 +760,24 @@ class DeviceEngine:
             snap = (stats.frames, stats.blocks, stats.fallback_frames)
             try:
                 for g in self._iter_pipelined(data, words):
-                    ta = time.perf_counter()
-                    self._assemble_group(
-                        *g, out=out, verify_checksum=verify_checksum,
-                        include_skippable=include_skippable,
-                    )
-                    asm_s += time.perf_counter() - ta
-                prepass_s = self._pipeline_parse_s
+                    with span(stats, "assembly"):
+                        self._assemble_group(
+                            *g, out=out, verify_checksum=verify_checksum,
+                            include_skippable=include_skippable,
+                        )
                 done = True
             except ZstdError as e:
                 _log.warning("pipelined decode failed, replanning: %r", e)
                 stats.fallback_reasons.append(f"pipelined: {e!r}")
                 out = bytearray()
-                asm_s = 0.0
+                # The failed pass counts under ``kernels``: prepass and
+                # assembly are the one-plan route's alone.
+                wall.update(parse=0.0, plan=0.0, assembly=0.0)
                 stats.frames, stats.blocks, stats.fallback_frames = snap
                 stats.lit_lanes = stats.seq_lanes = 0
         if not done:
-            tp = time.perf_counter()
-            plan = build_batch_plan(data, max_window_size=self.max_window_size, words=words)
-            prepass_s = time.perf_counter() - tp
+            with span(stats, "plan"):
+                plan = build_batch_plan(data, max_window_size=self.max_window_size, words=words)
             try:
                 (lit_outs, lit_ok), (seq_outs, seq_ok) = self._run_both(plan)
             except ZstdError as e:
@@ -745,12 +787,11 @@ class DeviceEngine:
                 seq_outs = [None] * plan.n_seq_lanes
                 lit_ok = np.zeros(plan.n_lit_lanes, dtype=bool)
                 seq_ok = np.zeros(plan.n_seq_lanes, dtype=bool)
-            ta = time.perf_counter()
-            self._assemble_group(
-                plan, lit_outs, lit_ok, seq_outs, seq_ok,
-                out=out, verify_checksum=verify_checksum, include_skippable=include_skippable,
-            )
-            asm_s = time.perf_counter() - ta
+            with span(stats, "assembly"):
+                self._assemble_group(
+                    plan, lit_outs, lit_ok, seq_outs, seq_ok,
+                    out=out, verify_checksum=verify_checksum, include_skippable=include_skippable,
+                )
         t3 = time.perf_counter()
         self._words_dev = {}
         self._dev_cache = None
@@ -758,13 +799,14 @@ class DeviceEngine:
         stats.bytes_out = len(out)
         # Parse, device work and assembly overlap; ``kernels`` is the
         # residual of the overlapped span.
-        stats.wall_s.update(
+        prepass_s = wall["parse"] + wall["plan"]
+        wall.update(
             prepass=prepass_s,
-            kernels=(t3 - t0) - prepass_s - asm_s,
-            assembly=asm_s,
+            kernels=(t3 - t0) - prepass_s - wall["assembly"],
             total=t3 - t0,
         )
-        return bytes(out)
+        with span(stats, "output"):
+            return bytes(out)
 
     def decompress(self, data, **kw) -> bytes:
         return self.decompress_with_stats(data, **kw)
