@@ -11,6 +11,8 @@
  *     (kernels/lz77_device.py).
  *   - zt_fse_parse_build / zt_fse_weights: FSE table parse + build and
  *     FSE-compressed Huffman weights (the host prepass's hot calls).
+ *   - zt_huffman_canonical / zt_fse_pack: the batch plan's entropy
+ *     tables packed for the kernels' banks, one call a table.
  *   - zt_lz77_lazy / zt_lz77_optimal: the encoder's hash-chain lazy
  *     matcher and price-driven optimal parse (encode.py).
  *
@@ -917,4 +919,114 @@ int zt_fse_weights(const uint8_t *payload, size_t len, uint8_t *out_w) {
     out_w[n++] = (uint8_t)symbol[states[turn]];
     out_w[n++] = (uint8_t)symbol[states[turn ^ 1]];
     return n;
+}
+
+/* ------------------------- Plan entropy tables ------------------------- */
+
+/* Canonical Huffman classes for the literals kernel, taken from a block's
+ * Huffman table payload (header byte + weights, either form) without the
+ * flat 2^max_bits decode table.  canon is int32[ZT_CANON_WORDS]: limits[12],
+ * prevs[12], lengths[12], rankb[12], ranked[256], in that order, exactly as
+ * format/block_table.py's Python pack lays them out.  weights gets the
+ * completed weights (the implied last one included), the plan's dedup key.
+ * Returns the number of completed weights, or -1 on a truncated payload or
+ * corrupt weights: the caller then runs the Python path, which raises the
+ * typed error. */
+#define ZT_HUF_MAX_BITS 11
+#define ZT_CANON_CLASSES 12
+#define ZT_CANON_WORDS (4 * ZT_CANON_CLASSES + 256)
+
+EXPORT int zt_huffman_canonical(const uint8_t *payload, size_t len,
+                                int32_t *canon, uint8_t *weights) {
+    if (len < 1) return -1;
+    int header = payload[0], n;
+    if (header < 128) {
+        if (len < 1 + (size_t)header) return -1;
+        n = zt_fse_weights(payload + 1, (size_t)header, weights);
+        if (n < 0) return -1;
+    } else {
+        n = header - 127;
+        if (len < 1 + (size_t)((n + 1) >> 1)) return -1;
+        for (int i = 0; i < n; i++) {
+            uint8_t b = payload[1 + (i >> 1)];
+            weights[i] = (i & 1) ? (b & 0x0F) : (b >> 4);
+        }
+    }
+    /* Complete and check as ops/huffman.py's complete_huffman_weights.  A
+     * weight above 11 alone makes the sum reach 2^11, so max_bits > 11. */
+    uint32_t wsum = 0;
+    for (int i = 0; i < n; i++) {
+        if (weights[i] > ZT_HUF_MAX_BITS) return -1;
+        if (weights[i]) wsum += 1u << (weights[i] - 1);
+    }
+    if (wsum == 0) return -1;
+    int max_bits = zt_floor_log2_u32(wsum) + 1;
+    uint32_t rest = (1u << max_bits) - wsum;
+    if (rest & (rest - 1)) return -1; /* rest > 0: max_bits is strictly above */
+    if (max_bits > ZT_HUF_MAX_BITS) return -1;
+    weights[n++] = (uint8_t)(zt_floor_log2_u32(rest) + 1);
+
+    int32_t *limits = canon, *prevs = canon + ZT_CANON_CLASSES;
+    int32_t *lengths = canon + 2 * ZT_CANON_CLASSES;
+    int32_t *rankb = canon + 3 * ZT_CANON_CLASSES;
+    int32_t *ranked = canon + 4 * ZT_CANON_CLASSES;
+    int count[ZT_HUF_MAX_BITS + 1] = {0}, next[ZT_HUF_MAX_BITS + 1];
+    for (int s = 0; s < n; s++) count[weights[s]]++;
+    for (int k = 0; k < ZT_CANON_CLASSES; k++) {
+        limits[k] = 1 << 12; /* unreachable pad */
+        prevs[k] = 0;
+        lengths[k] = 1;
+        rankb[k] = 0;
+    }
+    memset(ranked, 0, 256 * sizeof(int32_t));
+    /* Longest codes (smallest weights) first, in 2^max_bits window units
+     * scaled up to the kernel's 11-bit window. */
+    int scale = ZT_HUF_MAX_BITS - max_bits, cls = 0, rank = 0;
+    uint32_t cum = 0;
+    for (int w = 1; w <= max_bits; w++) {
+        next[w] = rank;
+        if (count[w] == 0) continue;
+        uint32_t span = (uint32_t)count[w] << (w - 1);
+        prevs[cls] = (int32_t)(cum << scale);
+        limits[cls] = (int32_t)((cum + span) << scale);
+        lengths[cls] = max_bits + 1 - w;
+        rankb[cls] = rank;
+        rank += count[w];
+        cum += span;
+        cls++;
+    }
+    for (int s = 0; s < n; s++)
+        if (weights[s]) ranked[next[weights[s]]++] = s;
+    return n;
+}
+
+/* Pack a sequence-code FSE table (an RLE symbol is a one-state table with
+ * baseline 0 and 0 bits) into the sequences kernel's dual planes:
+ * p0 = baseline << 16 | nbits; p1 = value base << 5 | extra bits for
+ * kind 0 (LL) and 2 (ML), the code itself for kind 1 (OF).  Returns the
+ * bits bounding any decoded value (the bank's wbits, at least 1), or -1
+ * for a code out of its kind's range. */
+EXPORT int zt_fse_pack(const uint16_t *symbol, const uint16_t *baseline,
+                       const uint8_t *nbits, size_t size, int kind,
+                       int32_t *p0, int32_t *p1) {
+    /* The code tables are the encoder's (ZT_LL_BASE above); tests hold
+     * them to ops/sequence_codes.py code by code. */
+    const uint32_t *base = kind == 0 ? ZT_LL_BASE : ZT_ML_BASE;
+    const uint8_t *extra = kind == 0 ? ZT_LL_XB : ZT_ML_XB;
+    uint32_t max_code = kind == 0 ? 35 : kind == 1 ? 31 : 52, top = 0;
+    for (size_t i = 0; i < size; i++) {
+        uint32_t s = symbol[i];
+        if (s > max_code) return -1;
+        p0[i] = (int32_t)((uint32_t)baseline[i] << 16 | nbits[i]);
+        if (kind == 1) {
+            p1[i] = (int32_t)s;
+            if (s + 1 > top) top = s + 1; /* value < 2^(code + 1) */
+        } else {
+            p1[i] = (int32_t)(base[s] << 5 | extra[s]);
+            uint32_t v = base[s] + (1u << extra[s]) - 1;
+            if (v > top) top = v;
+        }
+    }
+    if (kind != 1) top = top ? (uint32_t)zt_floor_log2_u32(top) + 1 : 0;
+    return top > 1 ? (int)top : 1;
 }

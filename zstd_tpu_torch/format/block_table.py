@@ -1,8 +1,8 @@
 """Host prepass: flatten parsed frames into a device-ready batch plan.
 
 This is the host/device cut (SURVEY.md §3.1): everything above block
-*decoding* — frame/block/section headers, tiny FSE/Huffman table builds,
-repeat-mode resolution — happens here, serially and cheaply; everything
+*decoding* — frame/block/section headers, tiny FSE/Huffman table packs
+(one ``csrc/host.c`` call a table), repeat-mode resolution — happens here, serially and cheaply; everything
 byte-volume — Huffman literals, tANS sequence triples — becomes lanes of
 the batched device kernels (zstd_tpu_torch/kernels/).
 
@@ -19,8 +19,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import native
 from ..ops import fse as fse_ops
-from ..ops.huffman import HuffmanTable, parse_huffman_table
+from ..ops.huffman import complete_huffman_weights, parse_huffman_weights
 from ..utils.bits import ForwardByteCursor
 from ..utils.errors import ZstdError
 from .block import BlockType
@@ -34,46 +35,67 @@ MAX_BLOCK_SIZE = 128 << 10  # RFC 8878 §3.1.1.2.3
 MAX_SEQUENCES_PER_BLOCK = MAX_BLOCK_SIZE // 3 + 1
 
 
-def pack_huffman_canonical(table: HuffmanTable) -> dict[str, np.ndarray]:
-    """Pack a Huffman table for the v2 arithmetic-canonical kernel.
+# A packed Huffman table is one int32 row of these fields, back to back
+# (zt_huffman_canonical writes the same row).
+CANON_FIELDS = (("limits", 12), ("prevs", 12), ("lengths", 12), ("rankb", 12), ("ranked", 256))
+CANON_WORDS = sum(n for _, n in CANON_FIELDS)
+
+
+def _empty_canon() -> np.ndarray:
+    row = np.zeros(CANON_WORDS, dtype=np.int32)
+    row[:12] = 1 << 12  # limits: unreachable pad
+    row[24:36] = 1  # lengths
+    return row
+
+
+def canonical_from_weights(weights: np.ndarray, max_bits: int) -> np.ndarray:
+    """Pack completed Huffman weights for the v2 arithmetic-canonical
+    kernel, as one ``CANON_WORDS`` row.
 
     Code-length classes laid out in the 11-bit window space (longest
     codes first, canonical): per class k — ``limits[k]`` (end boundary),
     ``prevs[k]`` (start), ``lengths[k]``, ``rankb[k]`` (first symbol
     rank); plus ``ranked[256]`` mapping rank → symbol.  The kernel finds
     the class with 12 compares and selects the symbol by rank — no LUT.
-    """
-    mb = table.max_bits
-    weights = table.weights
-    limits = np.full(12, 1 << 12, dtype=np.int32)  # unreachable pad
-    prevs = np.zeros(12, dtype=np.int32)
-    lengths = np.ones(12, dtype=np.int32)
-    rankb = np.zeros(12, dtype=np.int32)
-    ranked = np.zeros(256, dtype=np.int32)
-    cum = 0  # in 2^mb window units
-    rank = 0
-    cls = 0
-    scale = 11 - mb
-    for w in range(1, mb + 1):
-        syms = np.flatnonzero(weights == w)
-        if len(syms) == 0:
-            continue
-        span = len(syms) << (w - 1)
-        prevs[cls] = cum << scale
-        limits[cls] = (cum + span) << scale
-        lengths[cls] = mb + 1 - w
-        rankb[cls] = rank
-        ranked[rank : rank + len(syms)] = syms
-        rank += len(syms)
-        cum += span
-        cls += 1
-    return {
-        "limits": limits,
-        "prevs": prevs,
-        "lengths": lengths,
-        "rankb": rankb,
-        "ranked": ranked,
-    }
+    Symbols rank by weight ascending, ties by symbol (a stable sort); a
+    class of ``count`` weight-``w`` symbols spans ``count << (w - 1)``
+    units of the ``2^max_bits`` code space."""
+    row = _empty_canon()
+    weights = np.asarray(weights, dtype=np.int64)
+    counts = np.bincount(weights, minlength=max_bits + 1)[1 : max_bits + 1]
+    ws = np.flatnonzero(counts) + 1  # the weights present, ascending
+    n = counts[ws - 1]
+    span = n << (ws - 1)
+    end = np.cumsum(span)
+    scale = 11 - max_bits
+    k = len(ws)
+    row[0:k] = end << scale
+    row[12 : 12 + k] = (end - span) << scale
+    row[24 : 24 + k] = max_bits + 1 - ws
+    row[36 : 36 + k] = np.cumsum(n) - n
+    order = np.argsort(weights, kind="stable")
+    ranked = order[weights[order] > 0]
+    row[48 : 48 + len(ranked)] = ranked
+    return row
+
+
+def split_canon(rows: np.ndarray) -> dict[str, np.ndarray]:
+    """The named fields of packed rows (``(..., CANON_WORDS)``), each a
+    contiguous array."""
+    out, at = {}, 0
+    for name, n in CANON_FIELDS:
+        out[name] = np.ascontiguousarray(rows[..., at : at + n])
+        at += n
+    return out
+
+
+def huffman_canonical_python(payload) -> tuple[np.ndarray, np.ndarray]:
+    """The Python path of ``native.huffman_canonical``: ``(canon row,
+    completed weights)`` of a block's Huffman table payload; raises the
+    typed ``ZstdError`` on a truncated payload or corrupt weights."""
+    weights = parse_huffman_weights(ForwardByteCursor(payload))
+    max_bits, all_weights = complete_huffman_weights(weights)
+    return canonical_from_weights(all_weights, max_bits), all_weights
 
 
 def _fse_value_plane(symbols: np.ndarray, kind: str) -> np.ndarray:
@@ -110,24 +132,35 @@ def _fse_value_plane(symbols: np.ndarray, kind: str) -> np.ndarray:
     return (ML_BASELINE[s] << 5 | ML_EXTRA_BITS[s]).astype(np.int32)
 
 
-def pack_fse_dual(table: fse_ops.FseTable, kind: str) -> tuple[np.ndarray, np.ndarray]:
-    """Pack an FSE table into the v2 dual planes (state-transition, value).
+def pack_fse_planes(symbol, baseline, nbits, kind: str) -> tuple[np.ndarray, np.ndarray]:
+    """The Python path of ``native.fse_pack``: a table's v2 dual planes
+    (state-transition, value); raises on out-of-range codes.
 
-    Compact form: exactly ``table.size`` (= 2^al) entries per plane —
+    Compact form: exactly ``len(symbol)`` (= 2^al) entries per plane —
     the device bank stores tables back to back (variable-size slots)
     because a blanket 512-row slot made the bank upload ~3x the real
     table volume on the bench corpus, and the upload rides the slow
     relay (BASELINE.md)."""
-    p0 = (table.baseline.astype(np.int32) << 16) | table.nbits.astype(np.int32)
-    p1 = _fse_value_plane(np.asarray(table.symbol), kind)
+    p0 = (np.asarray(baseline).astype(np.int32) << 16) | np.asarray(nbits).astype(np.int32)
+    p1 = _fse_value_plane(np.asarray(symbol), kind)
     return p0.astype(np.int32), p1
 
 
-def pack_rle_dual(byte: int, kind: str) -> tuple[np.ndarray, np.ndarray]:
-    """RLE mode as a single-state FSE table (baseline 0, 0 bits)."""
-    p0 = np.zeros(1, dtype=np.int32)
-    p1 = _fse_value_plane(np.asarray([byte]), kind)
-    return p0, p1
+# RLE mode as a single-state FSE table: baseline 0, 0 bits.
+_RLE_ZERO16 = np.zeros(1, dtype=np.uint16)
+_RLE_ZERO8 = np.zeros(1, dtype=np.uint8)
+
+
+def value_bits(p1: np.ndarray, kind: str) -> int:
+    """Bits bounding any value a packed table decodes (a bank slot's
+    ``wbits``, at least 1)."""
+    if kind == "of":
+        # value = (1 << code) + extra < 2^(code + 1)
+        w = int(p1.max()) + 1
+    else:
+        # value = value_base + take(extra_bits)
+        w = int(((p1 >> 5) + (1 << (p1 & 31)) - 1).max()).bit_length()
+    return max(w, 1)
 
 
 class _FseBank:
@@ -136,7 +169,10 @@ class _FseBank:
     Slots are kind-specific ('ll'/'of'/'ml') because the v2 value plane
     folds the kind's code→value table into each state entry.  Packing
     validates symbol ranges; out-of-range codes raise and the frame
-    falls back to the oracle.
+    falls back to the oracle.  Each table is packed by one native call
+    (``zt_fse_pack``); without the library, or when it reports a code out
+    of range, the Python path packs it or raises ``SymbolCodeTooLarge``.
+    ``packed`` counts the tables packed by each path.
 
     Storage is a flat variable-size bank: slot ``i`` occupies rows
     ``off[i] .. off[i] + 2^al_i`` of the concatenated planes, and
@@ -147,7 +183,7 @@ class _FseBank:
     stay < 2^al by the table tiling invariant.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, use_native: bool, packed: dict[str, int]) -> None:
         self.p0s: list[np.ndarray] = []  # transition plane chunks
         self.p1s: list[np.ndarray] = []  # value plane chunks
         self.offs: list[int] = []  # first row of each slot
@@ -157,33 +193,35 @@ class _FseBank:
         self._dedup: dict[tuple, int] = {}
         self._predef: dict[str, int] = {}
         self._rle: dict[tuple[str, int], int] = {}
+        self._native = use_native
+        self.packed = packed
 
-    def _push(self, p0: np.ndarray, p1: np.ndarray, al: int, key: tuple) -> int:
+    def _pack(self, symbol, baseline, nbits, kind: str) -> tuple[np.ndarray, np.ndarray, int]:
+        res = native.fse_pack(symbol, baseline, nbits, kind) if self._native else None
+        if res is not None:
+            self.packed["native"] += 1
+            return res
+        p0, p1 = pack_fse_planes(symbol, baseline, nbits, kind)  # may raise
+        self.packed["python"] += 1
+        return p0, p1, value_bits(p1, kind)
+
+    def _push(self, p0: np.ndarray, p1: np.ndarray, al: int, key: tuple, wbits: int) -> int:
         slot = self._dedup.get(key)
         if slot is not None:
             return slot
-        kind = key[1] if key[0] == "rle" else key[0]
-        if kind == "of":
-            # value = (1 << code) + extra < 2^(code + 1)
-            w = int(p1.max()) + 1
-        else:
-            # value = value_base + take(extra_bits)
-            w = int(((p1 >> 5) + (1 << (p1 & 31)) - 1).max()).bit_length()
         self.p0s.append(p0)
         self.p1s.append(p1)
         self.offs.append(self._total)
         self.als.append(al)
-        self.wbits.append(max(w, 1))
+        self.wbits.append(wbits)
         self._total += len(p0)
         slot = len(self.offs) - 1
         self._dedup[key] = slot
         return slot
 
     def add(self, table: fse_ops.FseTable, kind: str) -> int:
-        p0, p1 = pack_fse_dual(table, kind)  # may raise SymbolCodeTooLarge
-        return self._push(
-            p0, p1, table.accuracy_log, (kind, p0.tobytes(), p1.tobytes())
-        )
+        p0, p1, w = self._pack(table.symbol, table.baseline, table.nbits, kind)
+        return self._push(p0, p1, table.accuracy_log, (kind, p0.tobytes(), p1.tobytes()), w)
 
     def predefined(self, kind: str) -> int:
         if kind not in self._predef:
@@ -198,8 +236,9 @@ class _FseBank:
     def rle(self, byte: int, kind: str) -> int:
         key = (kind, byte)
         if key not in self._rle:
-            p0, p1 = pack_rle_dual(byte, kind)  # may raise
-            self._rle[key] = self._push(p0, p1, 0, ("rle",) + key)
+            symbol = np.asarray([byte], dtype=np.uint16)
+            p0, p1, w = self._pack(symbol, _RLE_ZERO16, _RLE_ZERO8, kind)  # may raise
+            self._rle[key] = self._push(p0, p1, 0, ("rle",) + key, w)
         return self._rle[key]
 
     def stack(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -331,6 +370,11 @@ class BatchPlan:
     huff_lengths: np.ndarray
     huff_rankb: np.ndarray
     huff_ranked: np.ndarray  # (n_tables, 256) int32
+    # Entropy tables (Huffman, FSE, RLE, predefined) packed by the native
+    # calls and by the Python path; the Python path packs only without
+    # the library or where the library reports corruption.
+    tables_native: int = 0
+    tables_python: int = 0
 
     @property
     def n_lit_lanes(self) -> int:
@@ -352,8 +396,10 @@ class BatchPlan:
 class _Builder:
     def __init__(self, data) -> None:
         self.loc = _StreamLocator(data)
-        self.fse = _FseBank()
-        self.huff_canon: list[dict[str, np.ndarray]] = []
+        self.native = native.available()
+        self.packed = {"native": 0, "python": 0}
+        self.fse = _FseBank(self.native, self.packed)
+        self.huff_canon: list[np.ndarray] = []  # CANON_WORDS rows
         self._huff_dedup: dict[bytes, int] = {}
         self.lit = {k: [] for k in ("base", "p0", "pend", "regen", "slot")}
         self.seq = {
@@ -384,13 +430,22 @@ class _Builder:
         self.lit["slot"].append(slot)
         return lane
 
-    def add_huffman(self, table: HuffmanTable) -> int:
-        """Register a canonical-packed Huffman table, deduplicated by
-        weights (identical tables are common across similar frames)."""
-        key = table.weights.tobytes()
+    def add_huffman(self, payload) -> int:
+        """Pack a block's Huffman table (its payload: header byte +
+        weights) and register it, deduplicated by completed weights
+        (identical tables are common across similar frames).  Raises the
+        typed ``ZstdError`` on corrupt weights."""
+        res = native.huffman_canonical(payload) if self.native else None
+        if res is None:
+            res = huffman_canonical_python(payload)
+            self.packed["python"] += 1
+        else:
+            self.packed["native"] += 1
+        canon, weights = res
+        key = weights.tobytes()
         slot = self._huff_dedup.get(key)
         if slot is None:
-            self.huff_canon.append(pack_huffman_canonical(table))
+            self.huff_canon.append(canon)
             slot = len(self.huff_canon) - 1
             self._huff_dedup[key] = slot
         return slot
@@ -496,13 +551,10 @@ def build_batch_plan(
             else:
                 if lit.ltype == LiteralsType.COMPRESSED:
                     try:
-                        table = parse_huffman_table(
-                            ForwardByteCursor(lit.huffman_payload)
-                        )
+                        huff_slot = builder.add_huffman(lit.huffman_payload)
                     except ZstdError as e:
                         fp.fallback, fp.fallback_reason = True, f"huffman: {e}"
                         continue
-                    huff_slot = builder.add_huffman(table)
                 if huff_slot is None:
                     fp.fallback, fp.fallback_reason = True, "treeless w/o table"
                     continue
@@ -544,19 +596,7 @@ def build_batch_plan(
             cur["ll"], cur["of"], cur["ml"] = specs
 
     fse_flat0, fse_flat1, fse_off, fse_wbits = builder.fse.stack()
-    if builder.huff_canon:
-        canon = {
-            key: np.stack([c[key] for c in builder.huff_canon])
-            for key in ("limits", "prevs", "lengths", "rankb", "ranked")
-        }
-    else:
-        canon = {
-            "limits": np.full((1, 12), 1 << 12, dtype=np.int32),
-            "prevs": np.zeros((1, 12), dtype=np.int32),
-            "lengths": np.ones((1, 12), dtype=np.int32),
-            "rankb": np.zeros((1, 12), dtype=np.int32),
-            "ranked": np.zeros((1, 256), dtype=np.int32),
-        }
+    canon = split_canon(np.stack(builder.huff_canon or [_empty_canon()]))
     i32 = lambda xs: np.asarray(xs, dtype=np.int32)  # noqa: E731
     return BatchPlan(
         frames=frames_out,
@@ -585,4 +625,6 @@ def build_batch_plan(
         huff_lengths=canon["lengths"],
         huff_rankb=canon["rankb"],
         huff_ranked=canon["ranked"],
+        tables_native=builder.packed["native"],
+        tables_python=builder.packed["python"],
     )

@@ -6,6 +6,8 @@ the repository root, and exposes the decode side:
 
 * ``available()``
 * ``fse_parse_build(data)`` / ``fse_weights(payload)`` (prepass tables)
+* ``huffman_canonical(payload)`` / ``fse_pack(symbol, baseline, nbits,
+  kind)`` (the batch plan's tables packed for the kernels' banks)
 * ``xxh64(data, seed)``
 * ``execute_sequences(out, out_len, literals, ll, ofv, ml, rep)``
 * ``resolve_offsets(ll, ofv, rep)`` (the device LZ77 route's offset scan)
@@ -147,6 +149,23 @@ def _load() -> ctypes.CDLL | None:
             ctypes.c_size_t,  # len
             ctypes.c_void_p,  # out weights uint8[256]
         ]
+        lib.zt_huffman_canonical.restype = ctypes.c_int
+        lib.zt_huffman_canonical.argtypes = [
+            ctypes.c_char_p,  # payload (header byte + weights)
+            ctypes.c_size_t,  # len
+            ctypes.c_void_p,  # out canon int32[CANON_WORDS]
+            ctypes.c_void_p,  # out weights uint8[256] (just past canon)
+        ]
+        lib.zt_fse_pack.restype = ctypes.c_int
+        lib.zt_fse_pack.argtypes = [
+            ctypes.c_char_p,  # symbol uint16[size]
+            ctypes.c_char_p,  # baseline uint16[size]
+            ctypes.c_char_p,  # nbits uint8[size]
+            ctypes.c_size_t,  # size
+            ctypes.c_int,  # kind: 0 ll, 1 of, 2 ml
+            ctypes.c_void_p,  # out p0 int32[size]
+            ctypes.c_void_p,  # out p1 int32[size] (just past p0)
+        ]
         _lib = lib
         return _lib
 
@@ -196,6 +215,54 @@ def fse_weights(payload) -> list[int] | None:
     if n < 0:
         return None
     return out[:n].tolist()
+
+
+# zt_huffman_canonical's output row: limits, prevs, lengths, rankb (12
+# int32 each), then ranked (256).
+CANON_WORDS = 4 * 12 + 256
+FSE_KINDS = {"ll": 0, "of": 1, "ml": 2}
+
+
+def huffman_canonical(payload) -> tuple[np.ndarray, np.ndarray] | None:
+    """Canonical Huffman classes of a block's table payload (header byte +
+    weights): ``(canon int32[CANON_WORDS], completed weights uint8[n])``,
+    or ``None`` when the library is unavailable or the weights are corrupt
+    (the caller then runs the Python path, which raises the typed error)."""
+    lib = _load()
+    if lib is None:
+        return None
+    buf = bytes(payload)
+    # One allocation and one pointer: a ctypes pointer costs more than the
+    # pack itself.
+    out = np.empty(4 * CANON_WORDS + 256, dtype=np.uint8)
+    at = out.ctypes.data
+    n = lib.zt_huffman_canonical(buf, len(buf), at, at + 4 * CANON_WORDS)
+    if n < 0:
+        return None
+    return out[: 4 * CANON_WORDS].view(np.int32), out[4 * CANON_WORDS : 4 * CANON_WORDS + n]
+
+
+def fse_pack(symbol, baseline, nbits, kind: str) -> tuple[np.ndarray, np.ndarray, int] | None:
+    """A sequence-code FSE table's dual planes and value bits: ``(p0, p1,
+    wbits)``, or ``None`` when the library is unavailable or a code is out
+    of ``kind``'s range (the Python path then raises the typed error)."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(symbol)
+    # Inputs as bytes (a copy of at most 2.5 KiB) and both planes in one
+    # allocation: a ctypes pointer from numpy costs more than the pack.
+    planes = np.empty(2 * n, dtype=np.int32)
+    at = planes.ctypes.data
+    wbits = lib.zt_fse_pack(
+        np.asarray(symbol, dtype=np.uint16).tobytes(),
+        np.asarray(baseline, dtype=np.uint16).tobytes(),
+        np.asarray(nbits, dtype=np.uint8).tobytes(),
+        n, FSE_KINDS[kind], at, at + 4 * n,
+    )
+    if wbits < 0:
+        return None
+    return planes[:n], planes[n:], wbits
 
 
 def xxh64(data, seed: int = 0) -> int:

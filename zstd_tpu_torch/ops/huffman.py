@@ -111,8 +111,9 @@ def parse_huffman_weights(cur: ForwardByteCursor) -> list[int]:
     return weights[:num]
 
 
-def build_huffman_table(weights: list[int]) -> HuffmanTable:
-    """Build the flat decode table from explicit weights (RFC 8878 §4.2.1).
+def complete_huffman_weights(weights: list[int]) -> tuple[int, np.ndarray]:
+    """Complete explicit weights with the implied last one and check them
+    (RFC 8878 §4.2.1): ``(max_bits, all_weights uint8[len(weights) + 1])``.
 
     ``weights`` excludes the last symbol's weight, which is implied: the
     weight-sum ``Σ 2^(w-1)`` is completed to the next power of two
@@ -139,6 +140,13 @@ def build_huffman_table(weights: list[int]) -> HuffmanTable:
         raise CorruptedHuffman(
             f"max code length {max_bits} exceeds {MAX_CODE_LENGTH}"
         )
+    return max_bits, all_weights
+
+
+def build_huffman_table(weights: list[int]) -> HuffmanTable:
+    """Build the flat decode table from explicit weights (RFC 8878 §4.2.1),
+    completed and checked by :func:`complete_huffman_weights`."""
+    max_bits, all_weights = complete_huffman_weights(weights)
 
     size = 1 << max_bits
     symbol = np.zeros(size, dtype=np.uint8)

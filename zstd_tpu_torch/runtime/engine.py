@@ -165,6 +165,10 @@ class EngineStats:
     retry_lanes: int = 0
     upload_bytes: int = 0
     fetch_bytes: int = 0
+    # Entropy tables the plans packed natively / on the Python path
+    # (BatchPlan.tables_native / tables_python, summed).
+    tables_native: int = 0
+    tables_python: int = 0
     # Seconds of the last call: each of STEPS, prepass, kernels and total
     # (and measure_phases' four phases).
     wall_s: dict = field(default_factory=dict)
@@ -186,6 +190,8 @@ class EngineStats:
             "retry_lanes": self.retry_lanes,
             "upload_bytes": self.upload_bytes,
             "fetch_bytes": self.fetch_bytes,
+            "tables_native": self.tables_native,
+            "tables_python": self.tables_python,
             "wall_s": dict(self.wall_s),
         }
 
@@ -659,6 +665,8 @@ class DeviceEngine:
         stats = self.stats
         stats.lit_lanes += plan.n_lit_lanes
         stats.seq_lanes += plan.n_seq_lanes
+        stats.tables_native += plan.tables_native
+        stats.tables_python += plan.tables_python
         dev_out = None
         if self.device_execute:
             dev_out = self._device_frames(plan, lit_outs, lit_ok, seq_outs, seq_ok)
@@ -775,6 +783,7 @@ class DeviceEngine:
                 wall.update(parse=0.0, plan=0.0, assembly=0.0)
                 stats.frames, stats.blocks, stats.fallback_frames = snap
                 stats.lit_lanes = stats.seq_lanes = 0
+                stats.tables_native = stats.tables_python = 0
         if not done:
             with span(stats, "plan"):
                 plan = build_batch_plan(data, max_window_size=self.max_window_size, words=words)
