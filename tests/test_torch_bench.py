@@ -83,7 +83,7 @@ def test_line_has_every_key_and_cpu_nulls(line):
     assert parts == pytest.approx(t["total_s"], rel=1e-9)
     assert set(t["kernel_s"]) == {"dispatch", "upload_wait", "device_compute", "fetch"}
     assert set(d["wall_s"]) == {"prepass", "kernels", "assembly", "total", "words", "parse", "plan",
-                                "launch", "wait", "unpack", "retry", "output"}
+                                "launch", "wait", "unpack", "retry", "execute", "output"}
     assert set(d["device_route"]) == {"gbs", "best_gbs", "worst_gbs", "fallback_frames", "lz77_calls"}
     assert d["device_route"]["lz77_calls"] == 0  # the plain form runs on the CPU: no kernel launch
     assert d["libzstd_serial_gbs"] > 0 and d["vs_libzstd_serial"] > 0 and d["oracle_baseline_gbs"] > 0

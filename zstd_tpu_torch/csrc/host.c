@@ -142,17 +142,53 @@ enum {
     ZT_ERR_OUTPUT_OVERFLOW = 4,
 };
 
+/* The bytes of the matches among `n` sequences that already ran without
+ * error whose source starts before their block's first output byte, from
+ * the repeat history `rep` as it was at the block's start (mutated). */
+static size_t far_match_bytes(const int32_t *ll_arr, const uint32_t *ofv_arr,
+                              const int32_t *ml_arr, size_t n, uint64_t *rep) {
+    size_t pos = 0, far = 0; /* output bytes of the block so far */
+    for (size_t i = 0; i < n; i++) {
+        size_t ll = (size_t)ll_arr[i];
+        uint64_t ofv = ofv_arr[i];
+        uint64_t offset;
+        if (ofv > 3) {
+            offset = ofv - 3;
+            rep[2] = rep[1];
+            rep[1] = rep[0];
+            rep[0] = offset;
+        } else {
+            uint64_t idx = (ll != 0) ? ofv - 1 : ofv; /* as in the loop below */
+            offset = idx == 3 ? rep[0] - 1 : rep[idx];
+            if (idx > 0) {
+                if (idx > 1) rep[2] = rep[1];
+                rep[1] = rep[0];
+                rep[0] = offset;
+            }
+        }
+        pos += ll;
+        if (offset > pos) far += (size_t)ml_arr[i];
+        pos += (size_t)ml_arr[i];
+    }
+    return far;
+}
+
 /* Execute `n` sequences (ll[i], offset_value[i], ml[i]) into `out`
  * (which already holds `out_len` bytes of earlier frame output),
  * consuming `literals` and maintaining the 3-slot repeat history `rep`
  * (RFC 8878 §3.1.1.5; decoding_context.rs:50-107).  Trailing literals
  * are appended.  Returns ZT_OK or an error code; *out_len_io is updated
- * to the new output length on success. */
+ * to the new output length on success.  When `far_io` is not NULL, the
+ * bytes of every match whose source starts before the call's first
+ * output byte (in an earlier block of the frame) are added to it, by a
+ * second pass (far_match_bytes) that leaves this loop as it was; a call
+ * at output 0 (a frame's first block) has no such match and skips it. */
 EXPORT int zt_execute_sequences(
     uint8_t *out, size_t cap, size_t *out_len_io,
     const uint8_t *literals, size_t lit_len,
     const int32_t *ll_arr, const uint32_t *ofv_arr, const int32_t *ml_arr,
-    size_t n, uint64_t *rep /* [3] */) {
+    size_t n, uint64_t *rep /* [3] */, size_t *far_io) {
+    uint64_t rep_in[3] = {rep[0], rep[1], rep[2]};
     size_t out_len = *out_len_io;
     size_t lit_pos = 0;
 
@@ -205,6 +241,8 @@ EXPORT int zt_execute_sequences(
     memcpy(out + out_len, literals + lit_pos, tail);
     out_len += tail;
 
+    if (far_io && *out_len_io > 0)
+        *far_io += far_match_bytes(ll_arr, ofv_arr, ml_arr, n, rep_in);
     *out_len_io = out_len;
     return ZT_OK;
 }

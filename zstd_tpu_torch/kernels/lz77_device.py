@@ -155,11 +155,14 @@ class CopyProgram:
     then its ``out_len``-byte output region, from ``out_start``, with raw
     and RLE blocks already in place.  ``ops`` int64[3, n] are (src, dst,
     len) in order, positions in ``buf``: a literal op copies from the
-    pool, a match op from the output (``src = dst - offset``)."""
+    pool, a match op from the output (``src = dst - offset``).
+    ``far_match_bytes``: the bytes of the match ops whose source starts
+    before their block's first output byte."""
 
     buf: np.ndarray
     out_start: int
     ops: np.ndarray
+    far_match_bytes: int = 0
 
 
 @dataclass
@@ -167,14 +170,16 @@ class GroupProgram:
     """The copy programs of a frame group laid end to end: ``buf`` uint8
     holds the frames' buffers in turn; ``ops`` int64[3, n] at absolute
     positions; program p's ops are ``op_off[p]:op_off[p+1]``; frame p's
-    output is ``buf[outs[p][0] : outs[p][0] + outs[p][1]]``.  All three
-    are views of one byte array, ``blob`` (one upload)."""
+    output is ``buf[outs[p][0] : outs[p][0] + outs[p][1]]`` and its
+    program's far-match bytes ``far[p]``.  The three arrays are views of
+    one byte array, ``blob`` (one upload)."""
 
     blob: np.ndarray
     ops: np.ndarray
     op_off: np.ndarray
     buf: np.ndarray
     outs: list
+    far: list
 
     def split(self, blob: torch.Tensor):
         """(ops, op_off, buf) as views of ``blob``, a uint8 tensor holding
@@ -208,8 +213,9 @@ def block_literals(bp, lit_outs) -> np.ndarray:
 def _sequence_ops(ll, ofv, ml, n_lit: int, rep: list[int], pool_pos: int, out_pos: int):
     """One sequences block's ops, interleaved as executed: per sequence a
     literal op then a match op, then the trailing literals; (src, dst,
-    len, block output length), literal srcs in the pool and the rest in
-    output coordinates.  Mutates ``rep``."""
+    len, block output length, bytes of the matches whose source starts
+    before ``out_pos``), literal srcs in the pool and the rest in output
+    coordinates.  Mutates ``rep``."""
     try:
         ll, _ml, offs, seg, starts = _segments(ll, ofv, ml, n_lit, rep)
     except ValueError as e:
@@ -222,7 +228,8 @@ def _sequence_ops(ll, ofv, ml, n_lit: int, rep: list[int], pool_pos: int, out_po
     # Every match byte must reference already-materialized frame output.
     if n and ((src[1::2] < 0).any() or (offs < 1).any()):
         raise ImpossibleValue("match references future or pre-frame data")
-    return src, dst, seg, int(starts[-1])
+    far = int(seg[1::2][src[1::2] < out_pos].sum())
+    return src, dst, seg, int(starts[-1]), far
 
 
 def build_copy_program(fp, lit_outs, seq_outs) -> CopyProgram:
@@ -237,7 +244,7 @@ def build_copy_program(fp, lit_outs, seq_outs) -> CopyProgram:
     block, as the C executor's errors do."""
     rep = list(INITIAL_REPEAT_OFFSETS)
     pools, fills, parts = [], [], []
-    pool_len = out_len = 0
+    pool_len = out_len = far = 0
     for bp in fp.blocks:
         if bp.kind == BlockType.RAW:
             fills.append((out_len, np.frombuffer(bp.raw, dtype=np.uint8)))
@@ -254,7 +261,9 @@ def build_copy_program(fp, lit_outs, seq_outs) -> CopyProgram:
             size = n
         else:
             ll, ofv, ml = seq_outs[bp.seq_lane]
-            src, dst, seg, size = _sequence_ops(ll, ofv, ml, literals.size, rep, pool_len, out_len)
+            src, dst, seg, size, block_far = _sequence_ops(
+                ll, ofv, ml, literals.size, rep, pool_len, out_len)
+            far += block_far
             is_lit = np.zeros(src.size, dtype=bool)
             is_lit[0::2] = True
             parts.append((src, dst, seg, is_lit))
@@ -273,7 +282,7 @@ def build_copy_program(fp, lit_outs, seq_outs) -> CopyProgram:
     # Output positions follow the pool in the frame's buffer.
     src = src + np.where(is_lit, 0, pool_len)
     ops = np.stack([src[keep], dst[keep] + pool_len, ln[keep]]).astype(np.int64)
-    return CopyProgram(buf=buf, out_start=pool_len, ops=ops)
+    return CopyProgram(buf=buf, out_start=pool_len, ops=ops, far_match_bytes=far)
 
 
 def pack_programs(progs: list[CopyProgram]) -> GroupProgram:
@@ -292,4 +301,5 @@ def pack_programs(progs: list[CopyProgram]) -> GroupProgram:
         ops[2, a:b] = p.ops[2]
         outs.append((base + p.out_start, p.buf.size - p.out_start))
         base += p.buf.size
-    return GroupProgram(blob=blob, ops=ops, op_off=op_off, buf=buf, outs=outs)
+    return GroupProgram(blob=blob, ops=ops, op_off=op_off, buf=buf, outs=outs,
+                        far=[p.far_match_bytes for p in progs])

@@ -9,7 +9,8 @@ the repository root, and exposes the decode side:
 * ``huffman_canonical(payload)`` / ``fse_pack(symbol, baseline, nbits,
   kind)`` (the batch plan's tables packed for the kernels' banks)
 * ``xxh64(data, seed)``
-* ``execute_sequences(out, out_len, literals, ll, ofv, ml, rep)``
+* ``execute_sequences(out, out_len, literals, ll, ofv, ml, rep)`` (with
+  the bytes its matches copy from earlier blocks)
 * ``resolve_offsets(ll, ofv, rep)`` (the device LZ77 route's offset scan)
 
 and the encoder's match finders (``encode.py``):
@@ -83,6 +84,7 @@ def _load() -> ctypes.CDLL | None:
             ctypes.c_void_p,  # ml int32*
             ctypes.c_size_t,  # n
             ctypes.c_void_p,  # rep uint64[3]
+            ctypes.POINTER(ctypes.c_size_t),  # far-match bytes io (may be NULL)
         ]
         lib.zt_lz77_lazy.restype = ctypes.c_size_t
         lib.zt_lz77_lazy.argtypes = [
@@ -295,11 +297,13 @@ def execute_sequences(
     ofv: np.ndarray,
     ml: np.ndarray,
     rep: np.ndarray,
-) -> int:
+) -> tuple[int, int]:
     """Run sequences into preallocated ``out`` (uint8, big enough).
 
-    Returns the new output length; raises ValueError with the status
-    message on corruption.  ``rep`` is a uint64[3] array, mutated.
+    Returns the new output length and the bytes of the matches whose
+    source starts before ``out_len`` (in an earlier block of the frame);
+    raises ValueError with the status message on corruption.  ``rep`` is
+    a uint64[3] array, mutated.
     """
     lib = _load()
     if lib is None:
@@ -312,6 +316,7 @@ def execute_sequences(
     ml = np.ascontiguousarray(ml, dtype=np.int32)
     n = len(ll)
     out_len_c = ctypes.c_size_t(out_len)
+    far = ctypes.c_size_t(0)
     status = lib.zt_execute_sequences(
         out.ctypes.data,
         out.size,
@@ -323,10 +328,11 @@ def execute_sequences(
         ml.ctypes.data,
         n,
         rep.ctypes.data,
+        ctypes.byref(far),
     )
     if status != 0:
         raise ValueError(f"sequence execution failed: {_STATUS.get(status, status)}")
-    return out_len_c.value
+    return out_len_c.value, far.value
 
 
 HASH_LOG = 16

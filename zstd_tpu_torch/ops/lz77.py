@@ -35,14 +35,18 @@ def execute_sequences(
     sequences: list[tuple[int, int, int]],
     literals: bytes | memoryview,
     rep: list[int],
-) -> None:
+) -> int:
     """Execute ``(ll, offset_value, ml)`` triples (decoding_context.rs:78-107).
 
     Appends to ``out`` (the whole-frame output so far — matches may reach
     back across block boundaries), consuming ``literals`` and mutating the
     repeat-offset history ``rep`` in place.  Trailing literals after the
-    last sequence are appended verbatim.
+    last sequence are appended verbatim.  Returns the bytes of the matches
+    whose source starts before ``out``'s length at entry (in an earlier
+    block of the frame).
     """
+    block_start = len(out)
+    far = 0
     lit_pos = 0
     for ll, offset_value, ml in sequences:
         offset = resolve_offset(offset_value, ll, rep)
@@ -55,6 +59,9 @@ def execute_sequences(
         if ll:
             out += literals[lit_pos : lit_pos + ll]
             lit_pos += ll
+        if len(out) - offset < block_start:
+            far += ml
         copy_match(out, offset, ml)
     if lit_pos < len(literals):
         out += literals[lit_pos:]
+    return far

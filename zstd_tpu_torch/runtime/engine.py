@@ -97,10 +97,15 @@ GROUP_BYTES = 1 << 20  # compressed bytes per pipelined frame group
 # their upload; the frame parse and the batch plan (``prepass`` = parse +
 # plan); the host's lane columns, uploads, launches and queued copies
 # back; the wait on the card; the lanes' unpacking; the wide retry;
+# assembly; execute, the rebuilding of frames from their lanes' literals
+# and sequences (a frame at a time on the C executor or the Python route,
+# a group's program on the device LZ77 route), which lies inside
 # assembly; and the output's copy to ``bytes``, taken after ``total``.
 # ``kernels`` is the call less prepass and assembly: words, launch, wait,
 # unpack and retry lie inside it.
-STEPS = ("words", "parse", "plan", "launch", "wait", "unpack", "retry", "assembly", "output")
+STEPS = (
+    "words", "parse", "plan", "launch", "wait", "unpack", "retry", "assembly", "execute", "output",
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -169,6 +174,11 @@ class EngineStats:
     # (BatchPlan.tables_native / tables_python, summed).
     tables_native: int = 0
     tables_python: int = 0
+    # Frames of more than one block, and the bytes copied by matches whose
+    # source starts before their block's first output byte; a frame that
+    # falls back to the oracle adds to neither.
+    multiblock_frames: int = 0
+    far_match_bytes: int = 0
     # Seconds of the last call: each of STEPS, prepass, kernels and total
     # (and measure_phases' four phases).
     wall_s: dict = field(default_factory=dict)
@@ -192,6 +202,8 @@ class EngineStats:
             "fetch_bytes": self.fetch_bytes,
             "tables_native": self.tables_native,
             "tables_python": self.tables_python,
+            "multiblock_frames": self.multiblock_frames,
+            "far_match_bytes": self.far_match_bytes,
             "wall_s": dict(self.wall_s),
         }
 
@@ -566,17 +578,18 @@ class DeviceEngine:
 
     # -- assembly -------------------------------------------------------------
 
-    def _assemble_frame(self, fp: FramePlan, lit_outs, seq_outs) -> bytes | bytearray:
+    def _assemble_frame(self, fp: FramePlan, lit_outs, seq_outs) -> tuple[bytes | bytearray, int]:
         """Assemble one frame's output: exact-size preallocation and the
-        C executor when the native library is built, else pure Python."""
+        C executor when the native library is built, else pure Python.
+        Returns the output and the bytes its matches copied from earlier
+        blocks of the frame."""
         from .. import native
 
         if not native.available():
             out = bytearray()
             rep = list(INITIAL_REPEAT_OFFSETS)
-            for bp in fp.blocks:
-                self._assemble_block(bp, out, rep, lit_outs, seq_outs)
-            return out
+            far = sum(self._assemble_block(bp, out, rep, lit_outs, seq_outs) for bp in fp.blocks)
+            return out, far
 
         total = 0
         for bp in fp.blocks:
@@ -590,7 +603,7 @@ class DeviceEngine:
                     total += int(seq_outs[bp.seq_lane][2].sum())
 
         out = np.empty(total, dtype=np.uint8)
-        out_len = 0
+        out_len = far = 0
         rep = np.asarray(INITIAL_REPEAT_OFFSETS, dtype=np.uint64)
         for bp in fp.blocks:
             if bp.kind == BlockType.RAW:
@@ -609,18 +622,21 @@ class DeviceEngine:
                 continue
             ll, ofv, ml = seq_outs[bp.seq_lane]
             try:
-                out_len = native.execute_sequences(out, out_len, literals, ll, ofv, ml, rep)
+                out_len, block_far = native.execute_sequences(out, out_len, literals, ll, ofv, ml, rep)
             except ValueError as e:
                 raise ImpossibleValue(str(e)) from None
-        return memoryview(out)[:out_len]
+            far += block_far
+        return memoryview(out)[:out_len], far
 
-    def _assemble_block(self, bp: BlockPlan, out: bytearray, rep: list[int], lit_outs, seq_outs) -> None:
+    def _assemble_block(self, bp: BlockPlan, out: bytearray, rep: list[int], lit_outs, seq_outs) -> int:
+        """Append one block's output to ``out``; returns the bytes its
+        matches copied from earlier blocks."""
         if bp.kind == BlockType.RAW:
             out += bp.raw
-            return
+            return 0
         if bp.kind == BlockType.RLE:
             out += bytes([bp.rle_byte]) * bp.rle_repeat
-            return
+            return 0
         if bp.lit_kind == LiteralsType.RAW:
             literals = bp.lit_raw
         elif bp.lit_kind == LiteralsType.RLE:
@@ -632,16 +648,17 @@ class DeviceEngine:
                 raise ImpossibleValue("literal stream size mismatch")
         if bp.seq_lane < 0:
             out += literals
-            return
+            return 0
         ll, ofv, ml = seq_outs[bp.seq_lane]
         triples = list(zip(ll.tolist(), ofv.tolist(), ml.tolist()))
-        execute_sequences(out, triples, literals, rep)
+        return execute_sequences(out, triples, literals, rep)
 
     def _device_frames(self, plan, lit_outs, lit_ok, seq_outs, seq_ok) -> dict:
         """The device LZ77 route over one plan: the copy program of every
         frame that does not fall back, one upload, ONE lz77 launch, one
         pinned copy back behind a CUDA event.  Returns {frame index: its
-        output bytes, or the ZstdError its program build raised}."""
+        output bytes and the bytes its matches copied from earlier blocks,
+        or the ZstdError its program build raised}."""
         gp, idx, res = group_program(plan, lit_outs, lit_ok, seq_outs, seq_ok)
         if not idx:
             return res
@@ -653,8 +670,8 @@ class DeviceEngine:
         _wait(self._record_events())
         flat = memoryview(host.numpy())
         self.stats.fetch_bytes += flat.nbytes
-        for i, (start, n) in zip(idx, gp.outs):
-            res[i] = flat[start : start + n]
+        for i, (start, n), far in zip(idx, gp.outs, gp.far):
+            res[i] = flat[start : start + n], far
         return res
 
     def _assemble_group(
@@ -669,7 +686,8 @@ class DeviceEngine:
         stats.tables_python += plan.tables_python
         dev_out = None
         if self.device_execute:
-            dev_out = self._device_frames(plan, lit_outs, lit_ok, seq_outs, seq_ok)
+            with span(stats, "execute"):
+                dev_out = self._device_frames(plan, lit_outs, lit_ok, seq_outs, seq_ok)
         for i, fp in enumerate(plan.frames):
             stats.frames += 1
             if isinstance(fp.frame, SkippableFrame):
@@ -682,12 +700,15 @@ class DeviceEngine:
                 out += decode_frame(fp.frame, verify_checksum=verify_checksum)
                 continue
             try:
+                # One span a frame, each output appended while it is hot in
+                # cache: holding a group's outputs for one span cost more.
                 if dev_out is None:
-                    frame_out = self._assemble_frame(fp, lit_outs, seq_outs)
+                    with span(stats, "execute"):
+                        frame_out, far = self._assemble_frame(fp, lit_outs, seq_outs)
                 else:
-                    frame_out = dev_out[i]
-                    if isinstance(frame_out, ZstdError):
-                        raise frame_out
+                    if isinstance(dev_out[i], ZstdError):
+                        raise dev_out[i]
+                    frame_out, far = dev_out[i]
                 header = fp.frame.header
                 if header.checksum_flag and verify_checksum:
                     computed = xxh64(frame_out) & 0xFFFFFFFF
@@ -705,6 +726,9 @@ class DeviceEngine:
                 stats.fallback_frames += 1
                 stats.fallback_reasons.append(f"assembly: {e!r}")
                 frame_out = decode_frame(fp.frame, verify_checksum=verify_checksum)
+            else:
+                stats.multiblock_frames += len(fp.blocks) > 1
+                stats.far_match_bytes += far
             out += frame_out
 
     # -- entry points ---------------------------------------------------------
@@ -780,10 +804,11 @@ class DeviceEngine:
                 out = bytearray()
                 # The failed pass counts under ``kernels``: prepass and
                 # assembly are the one-plan route's alone.
-                wall.update(parse=0.0, plan=0.0, assembly=0.0)
+                wall.update(parse=0.0, plan=0.0, assembly=0.0, execute=0.0)
                 stats.frames, stats.blocks, stats.fallback_frames = snap
                 stats.lit_lanes = stats.seq_lanes = 0
                 stats.tables_native = stats.tables_python = 0
+                stats.multiblock_frames = stats.far_match_bytes = 0
         if not done:
             with span(stats, "plan"):
                 plan = build_batch_plan(data, max_window_size=self.max_window_size, words=words)
