@@ -5,6 +5,8 @@
  * encoder's match finders:
  *
  *   - zt_xxh64: frame content checksums, from the public XXH64 spec.
+ *   - zt_unpack_sequences: the sequences kernel's fetched word stream
+ *     split into (ll, offset value, ml) arrays (the engine's finish).
  *   - zt_execute_sequences: LZ77 sequence execution with memcpy-chunked,
  *     overlap-correct copies (the engine's host assembly stage).
  *   - zt_resolve_offsets: the repeat-offset scan of the device LZ77 route
@@ -140,7 +142,49 @@ enum {
     ZT_ERR_LITERALS_OVERRUN = 2,
     ZT_ERR_OFFSET_TOO_FAR = 3,
     ZT_ERR_OUTPUT_OVERFLOW = 4,
+    ZT_ERR_WORDS_RANGE = 5,
+    ZT_ERR_FIELD_WIDTHS = 6,
 };
+
+/* Unpack the sequences kernel's compacted word stream, as fetched to the
+ * host, into flat ll / offset value / ml arrays.  Lane j's nseq[j]
+ * sequences take g = 1 + (w > 32) words each from words[cumw[j]] on, with
+ * w = w_ll + w_ml + w_of; a sequence's value is its word, or its word and
+ * the next one as the high half when g = 2, masked to w bits and packed
+ * ll | ml << w_ll | ofv << (w_ll + w_ml).  Lane j's sequences go out after
+ * the sequences of the lanes before it.  Returns ZT_ERR_FIELD_WIDTHS for
+ * a width below 0 or widths summing past 63, ZT_ERR_WORDS_RANGE for a
+ * lane whose words do not lie inside words[0, n_words), before anything
+ * is read of that lane; ZT_OK otherwise. */
+EXPORT int zt_unpack_sequences(
+    const uint32_t *words, size_t n_words, const int32_t *cumw, const int32_t *nseq,
+    const int32_t *w_ll, const int32_t *w_ml, const int32_t *w_of, size_t n_lanes,
+    int32_t *ll_out, uint32_t *ofv_out, int32_t *ml_out) {
+    for (size_t j = 0; j < n_lanes; j++) {
+        int a = w_ll[j], b = w_ml[j], c = w_of[j];
+        if (a < 0 || b < 0 || c < 0 || a + b + c > 63) return ZT_ERR_FIELD_WIDTHS;
+        size_t g = a + b + c > 32 ? 2 : 1;
+        if (cumw[j] < 0 || nseq[j] < 0 || (size_t)cumw[j] > n_words
+            || (size_t)nseq[j] > (n_words - (size_t)cumw[j]) / g)
+            return ZT_ERR_WORDS_RANGE;
+        const uint32_t *p = words + cumw[j];
+        size_t n = (size_t)nseq[j];
+        uint64_t mask = (1ULL << (a + b + c)) - 1;
+        uint64_t m_ll = (1ULL << a) - 1, m_ml = (1ULL << b) - 1;
+        for (size_t i = 0; i < n; i++, p += g) {
+            uint64_t v = p[0];
+            if (g == 2) v |= (uint64_t)p[1] << 32;
+            v &= mask;
+            ll_out[i] = (int32_t)(uint32_t)(v & m_ll);
+            ml_out[i] = (int32_t)(uint32_t)((v >> a) & m_ml);
+            ofv_out[i] = (uint32_t)(v >> (a + b));
+        }
+        ll_out += n;
+        ml_out += n;
+        ofv_out += n;
+    }
+    return ZT_OK;
+}
 
 /* The bytes of the matches among `n` sequences that already ran without
  * error whose source starts before their block's first output byte, from

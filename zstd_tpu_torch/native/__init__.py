@@ -9,6 +9,8 @@ the repository root, and exposes the decode side:
 * ``huffman_canonical(payload)`` / ``fse_pack(symbol, baseline, nbits,
   kind)`` (the batch plan's tables packed for the kernels' banks)
 * ``xxh64(data, seed)``
+* ``unpack_sequences(words, cumw, nseq, w_ll, w_ml, w_of)`` (the
+  sequences kernel's fetched words split into (ll, ofv, ml))
 * ``execute_sequences(out, out_len, literals, ll, ofv, ml, rep)`` (with
   the bytes its matches copy from earlier blocks)
 * ``resolve_offsets(ll, ofv, rep)`` (the device LZ77 route's offset scan)
@@ -85,6 +87,20 @@ def _load() -> ctypes.CDLL | None:
             ctypes.c_size_t,  # n
             ctypes.c_void_p,  # rep uint64[3]
             ctypes.POINTER(ctypes.c_size_t),  # far-match bytes io (may be NULL)
+        ]
+        lib.zt_unpack_sequences.restype = ctypes.c_int
+        lib.zt_unpack_sequences.argtypes = [
+            ctypes.c_void_p,  # words uint32*
+            ctypes.c_size_t,  # n_words
+            ctypes.c_void_p,  # cumw int32[n_lanes]
+            ctypes.c_void_p,  # nseq int32[n_lanes]
+            ctypes.c_void_p,  # w_ll int32[n_lanes]
+            ctypes.c_void_p,  # w_ml int32[n_lanes]
+            ctypes.c_void_p,  # w_of int32[n_lanes]
+            ctypes.c_size_t,  # n_lanes
+            ctypes.c_void_p,  # out ll int32[sum nseq]
+            ctypes.c_void_p,  # out ofv uint32[sum nseq]
+            ctypes.c_void_p,  # out ml int32[sum nseq]
         ]
         lib.zt_lz77_lazy.restype = ctypes.c_size_t
         lib.zt_lz77_lazy.argtypes = [
@@ -286,7 +302,42 @@ _STATUS = {
     2: "literal run exceeds remaining literals",
     3: "offset exceeds decoded length",
     4: "output overflow",
+    5: "a lane's words lie outside the fetched buffer",
+    6: "field widths below 0 or summing past 63",
 }
+
+
+def unpack_sequences(words, cumw, nseq, w_ll, w_ml, w_of) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Split the sequences kernel's word stream (``words``, uint32) into
+    flat ``(ll int32, ofv uint32, ml int32)`` arrays, lane after lane:
+    lane j's ``nseq[j]`` sequences start at word ``cumw[j]`` and take one
+    word each, two when its field widths sum past 32 (``cumw`` may hold a
+    last, unread entry).  Raises ValueError with the status message when
+    a lane's words lie outside ``words`` (nothing outside is read) or its
+    widths are out of range."""
+    lib = _load()
+    if lib is None:
+        raise NativeUnavailable("native library not built")
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    cols = [np.ascontiguousarray(a, dtype=np.int32) for a in (nseq, w_ll, w_ml, w_of)]
+    cumw = np.ascontiguousarray(cumw, dtype=np.int32)
+    n = len(cols[0])
+    if len(cumw) < n or any(len(c) != n for c in cols):
+        raise ValueError("unpack_sequences: cumw, nseq and the widths differ in length")
+    if (cols[0] < 0).any():
+        raise ValueError("unpack_sequences: negative sequence count")
+    tot = int(cols[0].sum(dtype=np.int64))
+    ll = np.empty(tot, dtype=np.int32)
+    ofv = np.empty(tot, dtype=np.uint32)
+    ml = np.empty(tot, dtype=np.int32)
+    status = lib.zt_unpack_sequences(
+        words.ctypes.data, words.size, cumw.ctypes.data,
+        *(c.ctypes.data for c in cols), n,
+        ll.ctypes.data, ofv.ctypes.data, ml.ctypes.data,
+    )
+    if status != 0:
+        raise ValueError(f"sequence unpack failed: {_STATUS.get(status, status)}")
+    return ll, ofv, ml
 
 
 def execute_sequences(

@@ -179,6 +179,10 @@ class EngineStats:
     # falls back to the oracle adds to neither.
     multiblock_frames: int = 0
     far_match_bytes: int = 0
+    # Sequences unpacked from the fetched words by host.c / by numpy (the
+    # path without the native library).
+    seq_unpack_native: int = 0
+    seq_unpack_python: int = 0
     # Seconds of the last call: each of STEPS, prepass, kernels and total
     # (and measure_phases' four phases).
     wall_s: dict = field(default_factory=dict)
@@ -204,6 +208,8 @@ class EngineStats:
             "tables_python": self.tables_python,
             "multiblock_frames": self.multiblock_frames,
             "far_match_bytes": self.far_match_bytes,
+            "seq_unpack_native": self.seq_unpack_native,
+            "seq_unpack_python": self.seq_unpack_python,
             "wall_s": dict(self.wall_s),
         }
 
@@ -300,7 +306,7 @@ class DeviceEngine:
     def _fetch_pending(self, pending: list[tuple]) -> list[tuple]:
         """A dispatch's pending entries with their outputs' copies to
         pinned host buffers queued (``_to_host``)."""
-        return [(idx, cum, self._to_host(ts)) for idx, cum, ts in pending]
+        return [(idx, cum, self._to_host(ts), *rest) for idx, cum, ts, *rest in pending]
 
     def _record_events(self) -> list:
         """One CUDA event per distinct device, after the work queued so far
@@ -373,7 +379,9 @@ class DeviceEngine:
     def _dispatch_sequences(self, plan: BatchPlan, subset=None):
         """One narrow sequences launch over every lane with sequences (one
         a mesh block), then the word packing and one compaction launch.
-        ``subset`` as for literals.  Returns (outs, ok, pending)."""
+        ``subset`` as for literals.  Returns (outs, ok, pending); a pending
+        entry also holds its lanes' nseq and field widths, int32[4, L], for
+        the unpack."""
         n = plan.n_seq_lanes
         outs: list[tuple | None] = [None] * n
         ok = np.ones(n, dtype=bool)
@@ -394,7 +402,7 @@ class DeviceEngine:
             self._count(pos)
             self.stats.seq_lanes_run += s.stop - s.start
             ok_t = ((lane_ok != 0) & ~over).to(torch.int32)
-            pending.append((idx[s], c, [dense, ok_t]))
+            pending.append((idx[s], c, [dense, ok_t], np.ascontiguousarray(m[:, 3:7].T)))
         return outs, ok, pending
 
     # -- host finish ----------------------------------------------------------
@@ -411,40 +419,31 @@ class DeviceEngine:
 
     def _finish_sequences(self, plan, pending, outs, ok) -> None:
         # Word-packed triple streams: sequence i of lane j sits at word
-        # cumw[j] + i*g_j (plus a high word when g_j = 2) — one vectorized
-        # unpack across all lanes of the call.  Prefix validity is the
-        # kernel's job (a stall flags the lane bad); packing overflow also
-        # lands in the ok flag, so every not-ok lane re-decodes wide.
-        wb = plan.fse_wbits
-        one = np.uint64(1)
-        for idx, cumw, (dense, lane_ok) in pending:
+        # cumw[j] + i*g_j (plus a high word when g_j = 2) — one host.c pass
+        # over all lanes of the call (numpy without the library).  Prefix
+        # validity is the kernel's job (a stall flags the lane bad); packing
+        # overflow also lands in the ok flag, so every not-ok lane re-decodes
+        # wide.
+        from .. import native
+
+        stats = self.stats
+        use_native = native.available()
+        for idx, cumw, (dense, lane_ok), cols in pending:
             words = dense.numpy().view(np.uint32)
-            self.stats.fetch_bytes += words.nbytes + lane_ok.numel() * 4
-            packed = np.concatenate([words, np.zeros(2, np.uint32)]).astype(np.uint64)
+            stats.fetch_bytes += words.nbytes + lane_ok.numel() * 4
             ok[idx] = lane_ok.numpy().astype(bool)
-            ns = plan.seq_nseq[idx].astype(np.int64)
-            tot = int(ns.sum())
-            w_ll = wb[plan.seq_ll_slot[idx]].astype(np.int64)
-            w_ml = wb[plan.seq_ml_slot[idx]].astype(np.int64)
-            w_of = np.minimum(wb[plan.seq_of_slot[idx]].astype(np.int64), 63 - w_ll - w_ml)
-            w = w_ll + w_ml + w_of
-            g = 1 + (w > 32).astype(np.int64)
+            if use_native:
+                ll, ofv, ml = native.unpack_sequences(words, cumw, *cols)
+                stats.seq_unpack_native += ll.size
+            else:
+                ll, ofv, ml = unpack_sequences_numpy(words, cumw, *cols)
+                stats.seq_unpack_python += ll.size
             starts = np.zeros(len(idx) + 1, dtype=np.int64)
-            np.cumsum(ns, out=starts[1:])
-            lane_rep = np.repeat(np.arange(len(idx)), ns)
-            i_local = np.arange(tot, dtype=np.int64) - starts[lane_rep]
-            wi = cumw[:-1].astype(np.int64)[lane_rep] + i_local * g[lane_rep]
-            v = packed[wi] | np.where(g[lane_rep] == 2, packed[wi + 1], np.uint64(0)) << np.uint64(32)
-            wr = w[lane_rep].astype(np.uint64)
-            v &= (one << wr) - one
-            wllr = w_ll[lane_rep].astype(np.uint64)
-            wmlr = w_ml[lane_rep].astype(np.uint64)
-            vll = (v & ((one << wllr) - one)).astype(np.int32)
-            vof = (v >> (wllr + wmlr)).astype(np.uint32)
-            vml = ((v >> wllr) & ((one << wmlr) - one)).astype(np.int32)
+            np.cumsum(cols[0], out=starts[1:])
+            starts = starts.tolist()
             for j, lane in enumerate(idx):
                 s, e = starts[j], starts[j + 1]
-                outs[lane] = (vll[s:e], vof[s:e], vml[s:e])
+                outs[lane] = (ll[s:e], ofv[s:e], ml[s:e])
 
     def _retry_sequences(self, plan: BatchPlan, outs, ok) -> None:
         """Re-decode packed-range-overflow lanes (offset code >= 31, or a
@@ -809,6 +808,7 @@ class DeviceEngine:
                 stats.lit_lanes = stats.seq_lanes = 0
                 stats.tables_native = stats.tables_python = 0
                 stats.multiblock_frames = stats.far_match_bytes = 0
+                stats.seq_unpack_native = stats.seq_unpack_python = 0
         if not done:
             with span(stats, "plan"):
                 plan = build_batch_plan(data, max_window_size=self.max_window_size, words=words)
@@ -898,6 +898,34 @@ def _seq_pack_meta(plan, sel, nseq):
     cumw = np.zeros(len(sel) + 1, dtype=np.int32)
     np.cumsum(nseq.astype(np.int64) * g, out=cumw[1:])
     return w_ll, w_ml, w_of, cumw
+
+
+def unpack_sequences_numpy(words, cumw, nseq, w_ll, w_ml, w_of):
+    """``native.unpack_sequences`` in numpy, for a host without the native
+    library: the fetched words (uint32) of lanes with ``nseq`` sequences
+    from word ``cumw[j]`` on, split into flat (ll int32, ofv uint32, ml
+    int32), lane after lane."""
+    one = np.uint64(1)
+    packed = np.concatenate([words, np.zeros(2, np.uint32)]).astype(np.uint64)
+    ns = np.asarray(nseq, dtype=np.int64)
+    tot = int(ns.sum())
+    w_ll, w_ml, w_of = (np.asarray(a, dtype=np.int64) for a in (w_ll, w_ml, w_of))
+    w = w_ll + w_ml + w_of
+    g = 1 + (w > 32).astype(np.int64)
+    starts = np.zeros(len(ns) + 1, dtype=np.int64)
+    np.cumsum(ns, out=starts[1:])
+    lane_rep = np.repeat(np.arange(len(ns)), ns)
+    i_local = np.arange(tot, dtype=np.int64) - starts[lane_rep]
+    wi = np.asarray(cumw[: len(ns)], dtype=np.int64)[lane_rep] + i_local * g[lane_rep]
+    v = packed[wi] | np.where(g[lane_rep] == 2, packed[wi + 1], np.uint64(0)) << np.uint64(32)
+    wr = w[lane_rep].astype(np.uint64)
+    v &= (one << wr) - one
+    wllr = w_ll[lane_rep].astype(np.uint64)
+    wmlr = w_ml[lane_rep].astype(np.uint64)
+    vll = (v & ((one << wllr) - one)).astype(np.int32)
+    vof = (v >> (wllr + wmlr)).astype(np.uint32)
+    vml = ((v >> wllr) & ((one << wmlr) - one)).astype(np.int32)
+    return vll, vof, vml
 
 
 def _seq_lane_mat(plan, sel, nseq, w_ll, w_ml, w_of) -> np.ndarray:
