@@ -1146,7 +1146,7 @@ def main() -> int:
     )
     log(f"SM clock (now, max): {clocks.stdout.strip().splitlines()[0]}")
     log(f"kernel build: {_build.build_all():.1f} s (nvcc, sm_90a)")
-    check(native.available(), "host C routines failed to build")
+    native.require()  # the host C routines, or their compiler's message
     profiler_warm_up(log)
 
     log(f"libzstd: {ctypes.util.find_library('zstd')}")

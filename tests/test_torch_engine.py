@@ -105,15 +105,34 @@ def test_kernel_failure_propagates(monkeypatch, target):
         DeviceEngine(device="cpu", device_execute=module == "lz77").decompress(data)
 
 
-def test_pure_python_assembly_without_native(monkeypatch):
-    # Without the host C library the engine assembles frames in Python.
+@pytest.mark.parametrize("how", ["require_raises", "compiler_fails"])
+def test_engine_refuses_to_start_without_the_host_library(monkeypatch, tmp_path, how):
+    # The host steps have no form without csrc/host.c: like a failed CUDA
+    # build, a failed host build stops the engine at construction, with
+    # the compiler's message.
     from zstd_tpu_torch import native
 
-    monkeypatch.setattr(native, "available", lambda: False)
-    data, payload = combined()
-    eng = DeviceEngine(device="cpu")
-    assert eng.decompress(data) == payload
-    assert eng.stats.fallback_frames == 0
+    if how == "require_raises":
+        message = "host.c:1: error: stand-in"
+
+        def refuse():
+            raise native.NativeUnavailable(message)
+
+        monkeypatch.setattr(native, "require", refuse)
+    else:
+        # A fresh build (no library loaded yet) by a compiler that fails.
+        message = "cc: stand-in compiler refuses host.c"
+        cc = tmp_path / "cc"
+        cc.write_text(f"#!/bin/sh\necho '{message}' >&2\nexit 1\n")
+        cc.chmod(0o755)
+        monkeypatch.setenv("CC", str(cc))
+        monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(native, "_SO", tmp_path / "libhost.so")
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "_tried", False)
+        monkeypatch.setattr(native, "_error", "")
+    with pytest.raises(native.NativeUnavailable, match=message):
+        DeviceEngine(device="cpu")
 
 
 def test_cpu_runs_plain_forms_and_counts_no_launch():

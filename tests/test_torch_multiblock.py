@@ -3,8 +3,9 @@ frames whose blocks pass repeat offsets and history to each other, with
 a window descriptor and a raw block between compressed ones, as 1 MiB
 Parquet pages at level 1 are.  The output is held to the raw bytes and
 to libzstd; the engine's ``multiblock_frames`` and ``far_match_bytes``
-counters to hand counts and to each other on the C executor, the Python
-route and the device LZ77 route; the ``execute`` span to ``assembly``.
+counters to hand counts and to each other on the frame-group pipeline,
+the one-plan route (``measure_phases``) and the device LZ77 route; the
+``execute`` span to ``assembly``.
 With a CUDA card (marked ``cuda``), the same frames on ``cuda:0`` give
 the CPU engine's lanes and bytes."""
 
@@ -59,12 +60,8 @@ def _decoded(route: str):
     """The frames decoded on one route: (output, stats)."""
     data, _raws = _frames()
     eng = DeviceEngine(device="cpu", device_execute=route == "device_lz77")
-    if route == "python":
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(native, "available", lambda: False)
-            out = eng.decompress(data)
-    else:
-        out = eng.decompress(data)
+    eng.measure_phases = route == "one_plan"
+    out = eng.decompress(data)
     return out, eng.stats
 
 
@@ -82,7 +79,7 @@ def test_frames_are_multiblock_with_a_window_descriptor():
 
 def test_multiblock_frames_decode_bit_exact():
     data, raws = _frames()
-    out, st = _decoded("native")
+    out, st = _decoded("pipelined")
     assert out == b"".join(raws) == libzstd.decompress(data)
     assert st.fallback_frames == 0 and not st.fallback_reasons
     assert st.multiblock_frames == st.frames == 2
@@ -91,16 +88,16 @@ def test_multiblock_frames_decode_bit_exact():
     assert (d["multiblock_frames"], d["far_match_bytes"]) == (st.multiblock_frames, st.far_match_bytes)
 
 
-@pytest.mark.parametrize("route", ["python", "device_lz77"])
+@pytest.mark.parametrize("route", ["one_plan", "device_lz77"])
 def test_every_route_counts_the_same_far_matches(route):
-    out, st = _decoded("native")
+    out, st = _decoded("pipelined")
     got, gst = _decoded(route)
     assert got == out
     assert gst.fallback_frames == 0
     assert (gst.multiblock_frames, gst.far_match_bytes) == (st.multiblock_frames, st.far_match_bytes)
 
 
-@pytest.mark.parametrize("route", ["native", "python", "device_lz77"])
+@pytest.mark.parametrize("route", ["pipelined", "one_plan", "device_lz77"])
 def test_execute_span_lies_inside_assembly(route):
     _out, st = _decoded(route)
     w = st.wall_s
@@ -131,12 +128,11 @@ def test_far_match_bytes_counted_by_hand():
     py_out = bytearray(prior)
     assert execute_sequences(py_out, list(zip(ll, ofv, ml)), lits, [1, 4, 8]) == 9
     assert len(py_out) == 25
-    if native.available():
-        out = np.zeros(32, np.uint8)
-        out[:10] = np.frombuffer(prior, np.uint8)
-        rep = np.array([1, 4, 8], np.uint64)
-        n, far = native.execute_sequences(out, 10, lits, ll, ofv, ml, rep)
-        assert (n, far) == (25, 9) and bytes(out[:n]) == bytes(py_out)
+    out = np.zeros(32, np.uint8)
+    out[:10] = np.frombuffer(prior, np.uint8)
+    rep = np.array([1, 4, 8], np.uint64)
+    n, far = native.execute_sequences(out, 10, lits, ll, ofv, ml, rep)
+    assert (n, far) == (25, 9) and bytes(out[:n]) == bytes(py_out)
 
 
 def test_a_fallback_frame_adds_nothing(monkeypatch):
@@ -157,7 +153,7 @@ def test_a_fallback_frame_adds_nothing(monkeypatch):
     assert eng.decompress(data) == b"".join(raws)
     st = eng.stats
     assert st.fallback_frames == 1 and len(calls) == 2
-    _out, good = _decoded("native")
+    _out, good = _decoded("pipelined")
     assert st.multiblock_frames == 1
     assert 0 < st.far_match_bytes < good.far_match_bytes
 
@@ -193,6 +189,6 @@ def test_card_matches_the_cpu_engine():
     for g, w, what in zip(got, want, ("literals", "sequences before the retry", "sequences")):
         assert_lanes_equal(g[0], g[1], w[0], w[1], what)
     assert card.decompress(data) == b"".join(raws)
-    _out, st = _decoded("native")
+    _out, st = _decoded("pipelined")
     assert (card.stats.fallback_frames, card.stats.multiblock_frames) == (0, st.multiblock_frames)
     assert card.stats.far_match_bytes == st.far_match_bytes

@@ -127,8 +127,9 @@ def test_sharded_decompress_and_device_route():
 
 
 def test_route_choice(monkeypatch):
-    # The frame-group pipeline only for DeviceEngine's own _run_both on one
-    # device outside measure mode (the JAX engine's rule).
+    # The frame-group pipeline only where _pipelines() holds: one device,
+    # outside measure mode, not the multi-process engine (the JAX engine's
+    # rule).
     calls = []
     orig = DeviceEngine._iter_pipelined
 

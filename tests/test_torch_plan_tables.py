@@ -1,7 +1,9 @@
 """The batch plan's entropy tables, packed by the host C library
-(``zt_huffman_canonical``, ``zt_fse_pack``) and by the Python path, equal
-the JAX package's packs of its flat decode tables, and plans built either
-way are the same plan, corrupt inputs included.
+(``zt_huffman_canonical``, ``zt_fse_pack``) and by the Python packers
+that run where it refuses a table, equal the JAX package's packs of its
+flat decode tables; a plan whose every table host.c refuses is the same
+plan, corrupt inputs included; and valid tables never reach the Python
+packers.
 
 Huffman tables are packed straight from their weights: no flat
 ``2^max_bits`` table is built on the plan route.  The JAX package's
@@ -161,6 +163,11 @@ def test_huffman_canon_hand_made_weights(weights):
     assert_canon_paths_agree(direct_payload(weights))
 
 
+def _refuse(*args):
+    """host.c's answer to a table it refuses (a corrupt one)."""
+    return None
+
+
 def _raised(fn, *args) -> tuple[str, str]:
     """The name and message of the typed error ``fn`` raises (the port's
     and the JAX package's error classes are distinct, alike by name)."""
@@ -189,11 +196,8 @@ def test_huffman_rejected_weights_same_error_both_paths(payload, monkeypatch):
     assert native.huffman_canonical(payload) is None
     want = _raised(jax_parse_huffman, JaxCursor(payload))
     got_native = _raised(bt._Builder(payload).add_huffman, payload)
-    monkeypatch.setattr(native, "available", lambda: False)
-    plan = bt._Builder(payload)
-    assert not plan.native
-    assert _raised(plan.add_huffman, payload) == got_native == want
-    assert plan.packed == {"native": 0, "python": 0}
+    monkeypatch.setattr(native, "huffman_canonical", _refuse)
+    assert _raised(bt._Builder(payload).add_huffman, payload) == got_native == want
 
 
 def test_huffman_all_zero_weights_message():
@@ -236,8 +240,10 @@ def test_fse_pack_every_rle_byte(kind, monkeypatch):
             assert res is None
             want = _raised(jax_bt.pack_rle_dual, byte, kind)
             assert want == ("SymbolCodeTooLarge", f"{kind if kind != 'of' else 'offset'} code {byte} out of range")
-            assert _raised(bt._FseBank(True, {"native": 0, "python": 0}).rle, byte, kind) == want
-            assert _raised(bt._FseBank(False, {"native": 0, "python": 0}).rle, byte, kind) == want
+            assert _raised(bt._FseBank().rle, byte, kind) == want
+            with monkeypatch.context() as m:
+                m.setattr(native, "fse_pack", _refuse)
+                assert _raised(bt._FseBank().rle, byte, kind) == want
             continue
         jax_bank = jax_bt._FseBank()
         want = _jax_bank_slot(jax_bank, jax_bank.rle(byte, kind))
@@ -253,7 +259,7 @@ def test_fse_pack_out_of_range_table():
     for kind in ("ll", "of"):
         assert native.fse_pack(table.symbol, table.baseline, table.nbits, kind) is None
         want = _raised(jax_bt.pack_fse_dual, table, kind)
-        assert _raised(bt._FseBank(True, {"native": 0, "python": 0}).add, table, kind) == want
+        assert _raised(bt._FseBank().add, table, kind) == want
 
 
 @pytest.mark.parametrize("name", list(CORPORA))
@@ -266,7 +272,7 @@ def test_fse_pack_corpus_tables(corpora, name):
 
 def _plans_equal(a, b) -> None:
     for f in dataclasses.fields(a):
-        if f.name in ("frames", "tables_native", "tables_python"):
+        if f.name == "frames":
             continue
         x, y = getattr(a, f.name), getattr(b, f.name)
         assert x.dtype == y.dtype and x.shape == y.shape, f.name
@@ -282,25 +288,45 @@ def _plans_equal(a, b) -> None:
             ]
 
 
-def _plan_both_ways(data, monkeypatch):
-    on = bt.build_batch_plan(data)
+PACKERS = ((native, "huffman_canonical", "native"), (native, "fse_pack", "native"),
+           (bt, "huffman_canonical_python", "python"), (bt, "pack_fse_planes", "python"))
+
+
+def _plan(data, monkeypatch, *, refused: bool):
+    """``data``'s plan and its table packs by path: host.c's calls (each
+    refused with ``refused``, as a corrupt table is) and the Python
+    packers' calls."""
+    calls = {"native": 0, "python": 0}
+
+    def counted(fn, path):
+        def call(*args):
+            calls[path] += 1
+            return None if refused and path == "native" else fn(*args)
+        return call
+
     with monkeypatch.context() as m:
-        m.setattr(native, "available", lambda: False)
-        off = bt.build_batch_plan(data)
-    return on, off
+        for module, name, path in PACKERS:
+            m.setattr(module, name, counted(getattr(module, name), path))
+        plan = bt.build_batch_plan(data)
+    return plan, calls
+
+
+def _plan_both_ways(data, monkeypatch):
+    return (_plan(data, monkeypatch, refused=False)[0], _plan(data, monkeypatch, refused=True)[0])
 
 
 @pytest.mark.parametrize("name", list(CORPORA))
 def test_plan_native_equals_python(corpora, name, monkeypatch):
     data = corpora[name]
-    on, off = _plan_both_ways(data, monkeypatch)
+    on, on_calls = _plan(data, monkeypatch, refused=False)
+    off, off_calls = _plan(data, monkeypatch, refused=True)
     _plans_equal(on, off)
-    assert on.tables_python == 0 and off.tables_native == 0
-    assert on.tables_native == off.tables_python > 0
+    assert on_calls["python"] == 0
+    assert on_calls["native"] == off_calls["native"] == off_calls["python"] > 0
     # One pack a compressed-literals block, a FSE-mode table, and the
     # first use of each predefined and RLE table.
     n_huff = len(huffman_payloads(data))
-    assert on.tables_native >= n_huff + len(fse_tables(data))
+    assert on_calls["native"] >= n_huff + len(fse_tables(data))
 
 
 def _huffman_offsets(data) -> list[tuple[int, int]]:
@@ -318,8 +344,9 @@ def _huffman_offsets(data) -> list[tuple[int, int]]:
 def test_plan_corrupt_huffman_same_fallback(monkeypatch):
     """Every byte of a frame's Huffman weights (after the header byte,
     which sizes the payload) set to 0x00 and to 0xFF in turn: the plan is
-    the same with and without the library, fallback reasons word for word,
-    and some corruptions fall back with a ``huffman:`` reason."""
+    the same whether host.c packs its tables or refuses them all,
+    fallback reasons word for word, and some corruptions fall back with a
+    ``huffman:`` reason."""
     data = libzstd.compress(torch_inputs.level3_text()[1][:20_000], 3, checksum=False)
     (off, n), *_ = _huffman_offsets(data)
     huffman_fallbacks = 0
@@ -331,7 +358,8 @@ def test_plan_corrupt_huffman_same_fallback(monkeypatch):
                 on = bt.build_batch_plan(bytes(bad))
             except ZstdError as e:  # the frame itself no longer parses
                 with monkeypatch.context() as m:
-                    m.setattr(native, "available", lambda: False)
+                    m.setattr(native, "huffman_canonical", _refuse)
+                    m.setattr(native, "fse_pack", _refuse)
                     assert _raised(bt.build_batch_plan, bytes(bad)) == (type(e).__name__, str(e))
                 continue
             on, off_plan = _plan_both_ways(bytes(bad), monkeypatch)
@@ -341,16 +369,14 @@ def test_plan_corrupt_huffman_same_fallback(monkeypatch):
     assert huffman_fallbacks >= 3
 
 
-def test_engine_stats_count_tables_by_path(monkeypatch):
-    data, raw = torch_inputs.level3_small()
+def test_valid_tables_never_reach_the_python_packers(monkeypatch):
+    def reached(*args):
+        raise AssertionError("a valid table reached a Python packer")
+
+    monkeypatch.setattr(bt, "huffman_canonical_python", reached)
+    monkeypatch.setattr(bt, "pack_fse_planes", reached)
+    data, raw = torch_inputs.combined()
+    assert huffman_payloads(data) and fse_tables(data)
     eng = DeviceEngine(device="cpu")
     assert eng.decompress(data) == raw
-    plan = bt.build_batch_plan(data)
-    stats = eng.stats.as_dict()
-    assert stats["tables_native"] == plan.tables_native > 0
-    assert stats["tables_python"] == 0
-    monkeypatch.setattr(native, "available", lambda: False)
-    assert eng.decompress(data) == raw
-    stats = eng.stats.as_dict()
-    assert stats["tables_python"] == plan.tables_native
-    assert stats["tables_native"] == 0
+    assert eng.stats.fallback_frames == 0 and not eng.stats.fallback_reasons

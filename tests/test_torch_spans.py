@@ -13,7 +13,7 @@ from torch_inputs import level3_small, overflow_match
 from zstd_tpu_torch import observability
 from zstd_tpu_torch.parallel.multihost import MultihostEngine
 from zstd_tpu_torch.runtime import engine as t_engine
-from zstd_tpu_torch.runtime.engine import STEPS, DeviceEngine
+from zstd_tpu_torch.runtime.engine import STEPS, DeviceEngine, EngineStats
 from zstd_tpu_torch.utils.errors import ImpossibleValue
 
 KERNEL_STEPS = ("words", "launch", "wait", "unpack", "retry")  # inside wall_s["kernels"]
@@ -74,6 +74,41 @@ def test_replan_keeps_the_one_plan_prepass_and_assembly(monkeypatch):
     assert w["parse"] == 0 and w["prepass"] == w["plan"] > 0
     assert w["kernels"] == pytest.approx(w["total"] - w["prepass"] - w["assembly"], abs=1e-9)
     assert sum(w[k] for k in KERNEL_STEPS) <= w["kernels"]
+
+
+ASSEMBLY_COUNTERS = (
+    "frames", "blocks", "fallback_frames", "lit_lanes", "seq_lanes", "multiblock_frames",
+    "far_match_bytes",
+)
+
+
+def test_replan_counts_assembly_once(monkeypatch):
+    """After a pipelined pass that fails in its second group's assembly,
+    the counters assembly adds equal a clean one-plan call's on the same
+    input; the counters of device work still count the failed attempt."""
+    monkeypatch.setattr(t_engine, "GROUP_BYTES", 1)
+    data, payload = _input()
+    clean = _engine("measure_phases")
+    assert clean.decompress(data) == payload
+    eng = DeviceEngine(device="cpu")
+    assemble, calls = eng._assemble_group, []
+
+    def fail_second(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise ImpossibleValue("injected")
+        return assemble(*a, **kw)
+
+    eng._assemble_group = fail_second
+    assert eng.decompress(data) == payload
+    assert set(EngineStats.PASS_COUNTERS) == set(ASSEMBLY_COUNTERS)
+    got, want = eng.stats.as_dict(), clean.stats.as_dict()
+    assert want["frames"] == 4 and want["blocks"] > 0
+    assert {k: got[k] for k in ASSEMBLY_COUNTERS} == {k: want[k] for k in ASSEMBLY_COUNTERS}
+    for k in ("kernel_calls", "lit_lanes_run", "seq_lanes_run", "upload_bytes", "fetch_bytes"):
+        assert got[k] > want[k], k
+    assert got["mesh_calls"] == [got["kernel_calls"]]
+    assert got["fallback_reasons"] == ["pipelined: ImpossibleValue('injected')"]
 
 
 def test_steps_in_the_profiler_only_while_it_records(monkeypatch):

@@ -1,10 +1,10 @@
 """The sequence unpack of the port's engine: ``native.unpack_sequences``
-(``csrc/host.c``'s ``zt_unpack_sequences``) held to the numpy unpack
-that ``_finish_sequences`` keeps for a host without the library, array
-for array and dtype for dtype, on random lanes; its bounds check; and
-one small multi-frame input decoded with and without the library, lane
-by lane (``testing/lanes.engine_lanes``), byte for byte, with the
-``seq_unpack_native`` / ``seq_unpack_python`` counters.  No JAX."""
+(``csrc/host.c``'s ``zt_unpack_sequences``) held to a numpy reference
+(``unpack_numpy``, here), array for array and dtype for dtype, on random
+lanes; its bounds check; and inside the engine, on one small multi-frame
+input, the lanes ``_finish_sequences`` leaves before the retry held to
+the reference applied to the same fetched words, and the output byte
+for byte.  No JAX."""
 
 from __future__ import annotations
 
@@ -16,9 +16,36 @@ import pytest
 from zstd_tpu_torch import native
 from zstd_tpu_torch.format.block_table import build_batch_plan
 from zstd_tpu_torch.format.frame import iter_frames
-from zstd_tpu_torch.runtime.engine import DeviceEngine, sequence_lanes, unpack_sequences_numpy
+from zstd_tpu_torch.runtime.engine import DeviceEngine, sequence_lanes
 from zstd_tpu_torch.testing import libzstd
-from zstd_tpu_torch.testing.lanes import assert_lanes_equal, engine_lanes
+from zstd_tpu_torch.testing.lanes import engine_lanes
+
+
+def unpack_numpy(words, cumw, nseq, w_ll, w_ml, w_of):
+    """``native.unpack_sequences`` in numpy: the fetched words (uint32) of
+    lanes with ``nseq`` sequences from word ``cumw[j]`` on, split into flat
+    (ll int32, ofv uint32, ml int32), lane after lane."""
+    one = np.uint64(1)
+    packed = np.concatenate([words, np.zeros(2, np.uint32)]).astype(np.uint64)
+    ns = np.asarray(nseq, dtype=np.int64)
+    tot = int(ns.sum())
+    w_ll, w_ml, w_of = (np.asarray(a, dtype=np.int64) for a in (w_ll, w_ml, w_of))
+    w = w_ll + w_ml + w_of
+    g = 1 + (w > 32).astype(np.int64)
+    starts = np.zeros(len(ns) + 1, dtype=np.int64)
+    np.cumsum(ns, out=starts[1:])
+    lane_rep = np.repeat(np.arange(len(ns)), ns)
+    i_local = np.arange(tot, dtype=np.int64) - starts[lane_rep]
+    wi = np.asarray(cumw[: len(ns)], dtype=np.int64)[lane_rep] + i_local * g[lane_rep]
+    v = packed[wi] | np.where(g[lane_rep] == 2, packed[wi + 1], np.uint64(0)) << np.uint64(32)
+    wr = w[lane_rep].astype(np.uint64)
+    v &= (one << wr) - one
+    wllr = w_ll[lane_rep].astype(np.uint64)
+    wmlr = w_ml[lane_rep].astype(np.uint64)
+    vll = (v & ((one << wllr) - one)).astype(np.int32)
+    vof = (v >> (wllr + wmlr)).astype(np.uint32)
+    vml = ((v >> wllr) & ((one << wmlr) - one)).astype(np.int32)
+    return vll, vof, vml
 
 
 def _lanes(seed: int):
@@ -53,7 +80,7 @@ def test_native_unpack_matches_numpy(seed):
     assert set(g[nseq > 0].tolist()) == {1, 2}
     assert (w_ll + w_ml + w_of).max() == 63 and (nseq == 0).any()
     got = native.unpack_sequences(words, cumw, nseq, w_ll, w_ml, w_of)
-    want = unpack_sequences_numpy(words, cumw, nseq, w_ll, w_ml, w_of)
+    want = unpack_numpy(words, cumw, nseq, w_ll, w_ml, w_of)
     for name, a, b in zip(("ll", "ofv", "ml"), got, want):
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a, b, err_msg=name)
@@ -126,42 +153,37 @@ def _input(level: int) -> tuple[bytes, bytes]:
     return data, b"".join(parts)
 
 
-@functools.cache
-def _decoded(level: int, use_native: bool):
-    """(lanes, output, stats) of one engine on the input, with the native
-    library or without it."""
-    data, _raw = _input(level)
-    plan = build_batch_plan(data)
-    with pytest.MonkeyPatch.context() as mp:
-        if not use_native:
-            mp.setattr(native, "available", lambda: False)
-        lanes = engine_lanes(DeviceEngine(device="cpu"), plan)
-        eng = DeviceEngine(device="cpu")
-        out = eng.decompress(data)
-    return lanes, out, eng.stats
-
-
 @pytest.mark.parametrize("level", [3, 19])
-def test_engine_unpacks_alike_with_and_without_native(level):
+def test_engine_unpack_equals_the_numpy_reference(level):
     data, raw = _input(level)
     assert [len(f.blocks) for f in iter_frames(data)] == [1, 1, 3]
     plan = build_batch_plan(data)
-    total = int(plan.seq_nseq.sum())
     _idx, lane_mat, _cumw = sequence_lanes(plan)
     # Lanes of one word a sequence and of two.
     assert set((lane_mat[:, 4:7].sum(axis=1) > 32).tolist()) == {False, True}
-    (nat_lit, nat_pre, nat_seq), nat_out, nat = _decoded(level, True)
-    (py_lit, py_pre, py_seq), py_out, py = _decoded(level, False)
-    assert_lanes_equal(nat_lit[0], nat_lit[1], py_lit[0], py_lit[1], "literals")
-    assert_lanes_equal(nat_pre[0], nat_pre[1], py_pre[0], py_pre[1], "sequences before the retry")
-    assert_lanes_equal(nat_seq[0], nat_seq[1], py_seq[0], py_seq[1], "sequences")
-    for a, b in zip(nat_pre[0], py_pre[0]):
-        assert (a is None) == (b is None)
-        if a is not None:
-            assert [x.dtype for x in a] == [y.dtype for y in b] == [np.int32, np.uint32, np.int32]
-    assert nat_out == py_out == raw
-    assert nat.fallback_frames == py.fallback_frames == 0
-    assert (nat.seq_unpack_native, nat.seq_unpack_python) == (total, 0)
-    assert (py.seq_unpack_native, py.seq_unpack_python) == (0, total)
-    d = nat.as_dict()
-    assert (d["seq_unpack_native"], d["seq_unpack_python"]) == (total, 0)
+    eng = DeviceEngine(device="cpu")
+    fetched = []
+
+    def capture(pending):
+        out = DeviceEngine._fetch_pending(eng, pending)
+        fetched.extend(out)
+        return out
+
+    eng._fetch_pending = capture
+    _lit, (pre_outs, _pre_ok), _seq = engine_lanes(eng, plan)
+    seq_entries = [e for e in fetched if len(e) == 4]  # a sequences launch's entry holds its widths
+    assert len(seq_entries) == 1
+    seen = 0
+    for idx, cumw, (dense, _ok), cols in seq_entries:
+        want = unpack_numpy(dense.numpy().view(np.uint32), cumw, *cols)
+        starts = np.concatenate([[0], np.cumsum(cols[0], dtype=np.int64)])
+        for j, lane in enumerate(idx):
+            got = pre_outs[lane]
+            assert [x.dtype for x in got] == [np.int32, np.uint32, np.int32]
+            for name, a, b in zip(("ll", "ofv", "ml"), got, want):
+                np.testing.assert_array_equal(a, b[starts[j] : starts[j + 1]], err_msg=f"lane {lane} {name}")
+            seen += 1
+    assert seen == int((plan.seq_nseq > 0).sum()) > 0
+    del eng._fetch_pending
+    assert eng.decompress(data) == raw
+    assert eng.stats.fallback_frames == 0

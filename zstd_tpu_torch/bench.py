@@ -223,7 +223,7 @@ def run(device=None, corpus_mb: float = 24.0, hl_bytes: int = 8 << 20, iters: in
     t0 = time.perf_counter()
     if on_card:
         _build.build_all()
-    check(native.available(), "the host C library did not build")
+    native.require()
     build_s = time.perf_counter() - t0
     log(f"build {build_s:.1f} s on {dev}")
 

@@ -90,9 +90,10 @@ def split_canon(rows: np.ndarray) -> dict[str, np.ndarray]:
 
 
 def huffman_canonical_python(payload) -> tuple[np.ndarray, np.ndarray]:
-    """The Python path of ``native.huffman_canonical``: ``(canon row,
-    completed weights)`` of a block's Huffman table payload; raises the
-    typed ``ZstdError`` on a truncated payload or corrupt weights."""
+    """``native.huffman_canonical`` in Python, run where host.c refuses a
+    payload: ``(canon row, completed weights)`` of a block's Huffman table
+    payload; raises the typed ``ZstdError`` on a truncated payload or
+    corrupt weights (for a valid payload it equals host.c's pack)."""
     weights = parse_huffman_weights(ForwardByteCursor(payload))
     max_bits, all_weights = complete_huffman_weights(weights)
     return canonical_from_weights(all_weights, max_bits), all_weights
@@ -133,8 +134,9 @@ def _fse_value_plane(symbols: np.ndarray, kind: str) -> np.ndarray:
 
 
 def pack_fse_planes(symbol, baseline, nbits, kind: str) -> tuple[np.ndarray, np.ndarray]:
-    """The Python path of ``native.fse_pack``: a table's v2 dual planes
-    (state-transition, value); raises on out-of-range codes.
+    """``native.fse_pack`` in Python, run where host.c refuses a table: a
+    table's v2 dual planes (state-transition, value); raises on
+    out-of-range codes.
 
     Compact form: exactly ``len(symbol)`` (= 2^al) entries per plane —
     the device bank stores tables back to back (variable-size slots)
@@ -170,9 +172,8 @@ class _FseBank:
     folds the kind's code→value table into each state entry.  Packing
     validates symbol ranges; out-of-range codes raise and the frame
     falls back to the oracle.  Each table is packed by one native call
-    (``zt_fse_pack``); without the library, or when it reports a code out
-    of range, the Python path packs it or raises ``SymbolCodeTooLarge``.
-    ``packed`` counts the tables packed by each path.
+    (``zt_fse_pack``); where it reports a code out of range, the Python
+    packer raises ``SymbolCodeTooLarge`` with the reference's message.
 
     Storage is a flat variable-size bank: slot ``i`` occupies rows
     ``off[i] .. off[i] + 2^al_i`` of the concatenated planes, and
@@ -183,7 +184,7 @@ class _FseBank:
     stay < 2^al by the table tiling invariant.
     """
 
-    def __init__(self, use_native: bool, packed: dict[str, int]) -> None:
+    def __init__(self) -> None:
         self.p0s: list[np.ndarray] = []  # transition plane chunks
         self.p1s: list[np.ndarray] = []  # value plane chunks
         self.offs: list[int] = []  # first row of each slot
@@ -193,16 +194,12 @@ class _FseBank:
         self._dedup: dict[tuple, int] = {}
         self._predef: dict[str, int] = {}
         self._rle: dict[tuple[str, int], int] = {}
-        self._native = use_native
-        self.packed = packed
 
     def _pack(self, symbol, baseline, nbits, kind: str) -> tuple[np.ndarray, np.ndarray, int]:
-        res = native.fse_pack(symbol, baseline, nbits, kind) if self._native else None
+        res = native.fse_pack(symbol, baseline, nbits, kind)
         if res is not None:
-            self.packed["native"] += 1
             return res
         p0, p1 = pack_fse_planes(symbol, baseline, nbits, kind)  # may raise
-        self.packed["python"] += 1
         return p0, p1, value_bits(p1, kind)
 
     def _push(self, p0: np.ndarray, p1: np.ndarray, al: int, key: tuple, wbits: int) -> int:
@@ -370,11 +367,6 @@ class BatchPlan:
     huff_lengths: np.ndarray
     huff_rankb: np.ndarray
     huff_ranked: np.ndarray  # (n_tables, 256) int32
-    # Entropy tables (Huffman, FSE, RLE, predefined) packed by the native
-    # calls and by the Python path; the Python path packs only without
-    # the library or where the library reports corruption.
-    tables_native: int = 0
-    tables_python: int = 0
 
     @property
     def n_lit_lanes(self) -> int:
@@ -396,9 +388,7 @@ class BatchPlan:
 class _Builder:
     def __init__(self, data) -> None:
         self.loc = _StreamLocator(data)
-        self.native = native.available()
-        self.packed = {"native": 0, "python": 0}
-        self.fse = _FseBank(self.native, self.packed)
+        self.fse = _FseBank()
         self.huff_canon: list[np.ndarray] = []  # CANON_WORDS rows
         self._huff_dedup: dict[bytes, int] = {}
         self.lit = {k: [] for k in ("base", "p0", "pend", "regen", "slot")}
@@ -435,13 +425,8 @@ class _Builder:
         weights) and register it, deduplicated by completed weights
         (identical tables are common across similar frames).  Raises the
         typed ``ZstdError`` on corrupt weights."""
-        res = native.huffman_canonical(payload) if self.native else None
-        if res is None:
-            res = huffman_canonical_python(payload)
-            self.packed["python"] += 1
-        else:
-            self.packed["native"] += 1
-        canon, weights = res
+        res = native.huffman_canonical(payload)
+        canon, weights = huffman_canonical_python(payload) if res is None else res
         key = weights.tobytes()
         slot = self._huff_dedup.get(key)
         if slot is None:
@@ -625,6 +610,4 @@ def build_batch_plan(
         huff_lengths=canon["lengths"],
         huff_rankb=canon["rankb"],
         huff_ranked=canon["ranked"],
-        tables_native=builder.packed["native"],
-        tables_python=builder.packed["python"],
     )

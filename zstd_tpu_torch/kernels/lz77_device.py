@@ -25,30 +25,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from ..format.block import BlockType
 from ..format.literals import LiteralsType
-from ..ops.sequence_codes import INITIAL_REPEAT_OFFSETS, resolve_offset
+from ..ops.sequence_codes import INITIAL_REPEAT_OFFSETS
 from ..utils.errors import ImpossibleValue
 
 
 def _resolve_offsets(ll, ofv, rep: list[int]) -> np.ndarray:
-    try:
-        from .. import native
-
-        have = native.available()
-    except ImportError:
-        have = False
-    if have:
-        from .. import native
-
-        rep_arr = np.asarray(rep, dtype=np.uint64)
-        offs = native.resolve_offsets(ll, ofv, rep_arr)  # ValueError on corrupt
-        rep[:] = [int(r) for r in rep_arr]
-        return offs
-    return np.array(
-        [resolve_offset(int(v), int(l), rep) for l, v in zip(ll, ofv)],
-        dtype=np.int64,
-    )
+    rep_arr = np.asarray(rep, dtype=np.uint64)
+    offs = native.resolve_offsets(ll, ofv, rep_arr)  # ValueError on corrupt
+    rep[:] = [int(r) for r in rep_arr]
+    return offs
 
 
 def _segments(ll, ofv, ml, n_literals: int, rep: list[int]):
@@ -60,8 +48,8 @@ def _segments(ll, ofv, ml, n_literals: int, rep: list[int]):
     ll = np.asarray(ll, dtype=np.int64)
     ml = np.asarray(ml, dtype=np.int64)
     # The repeat-offset scan is the cheap intrinsically-serial pass
-    # (SURVEY.md §7 hard part #4); it stays host-side — in C when
-    # available (1.5M-sequence frames cost seconds as a Python loop).
+    # (SURVEY.md §7 hard part #4); it stays host-side, in C (1.5M-sequence
+    # frames cost seconds as a Python loop).
     offs = _resolve_offsets(ll, ofv, rep)
     trailing = n_literals - int(ll.sum())
     if trailing < 0:

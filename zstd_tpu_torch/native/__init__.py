@@ -4,7 +4,8 @@ Builds ``zstd_tpu_torch/csrc/host.c`` on first use (plain ``gcc -O2
 -shared``) into the git-ignored ``build/zstd_tpu_torch/`` directory at
 the repository root, and exposes the decode side:
 
-* ``available()``
+* ``require()`` (the library, or ``NativeUnavailable`` with the
+  compiler's message) / ``available()``
 * ``fse_parse_build(data)`` / ``fse_weights(payload)`` (prepass tables)
 * ``huffman_canonical(payload)`` / ``fse_pack(symbol, baseline, nbits,
   kind)`` (the batch plan's tables packed for the kernels' banks)
@@ -22,8 +23,14 @@ and the encoder's match finders (``encode.py``):
 * ``lz77_lazy(...)`` (hash-chain lazy matcher) and ``lz77_optimal(...)``
   (price-driven optimal parse)
 
-Every caller has a pure-Python/NumPy fallback, and the native results
-are covered by the same differential tests.
+The engine requires the library, as it requires the CUDA build:
+``DeviceEngine`` calls ``require()`` at construction, and the batch
+plan, the sequence unpack, the C executor and the device LZ77 route's
+offset scan have no other form.  ``fse_parse_build``, ``fse_weights``,
+``xxh64`` and the match finders serve the host modules copied verbatim
+from ``zstd_tpu`` (``ops/fse.py``, ``ops/huffman.py``,
+``utils/xxh64.py``, ``encode.py``), which check ``available()`` and keep
+their own fallbacks.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ _SO = BUILD_DIR / "libzstd_tpu_torch_host.so"
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _tried = False
+_error = ""  # why the library is not loaded: the compiler's stderr or the loader's error
 
 
 class NativeUnavailable(RuntimeError):
@@ -61,7 +69,7 @@ def _build() -> None:
 
 
 def _load() -> ctypes.CDLL | None:
-    global _lib, _tried
+    global _lib, _tried, _error
     with _lock:
         if _lib is not None or _tried:
             return _lib
@@ -70,7 +78,9 @@ def _load() -> ctypes.CDLL | None:
             if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
                 _build()
             lib = ctypes.CDLL(str(_SO))
-        except (OSError, subprocess.SubprocessError):
+        except (OSError, subprocess.SubprocessError) as e:
+            # The compiler's own message where it gave one.
+            _error = (getattr(e, "stderr", None) or b"").decode(errors="replace").strip() or str(e)
             return None
         lib.zt_xxh64.restype = ctypes.c_uint64
         lib.zt_xxh64.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint64]
@@ -192,6 +202,16 @@ def available() -> bool:
     return _load() is not None
 
 
+def require() -> ctypes.CDLL:
+    """The library, built on first use; raises ``NativeUnavailable``
+    carrying the compiler's stderr (or the loader's error) when it cannot
+    be built or loaded."""
+    lib = _load()
+    if lib is None:
+        raise NativeUnavailable(f"the host C library {_SRC.name} did not build: {_error}")
+    return lib
+
+
 def fse_parse_build(data) -> tuple | None:
     """Parse + build an FSE decode table from the buffer's bit 0.
 
@@ -244,11 +264,9 @@ FSE_KINDS = {"ll": 0, "of": 1, "ml": 2}
 def huffman_canonical(payload) -> tuple[np.ndarray, np.ndarray] | None:
     """Canonical Huffman classes of a block's table payload (header byte +
     weights): ``(canon int32[CANON_WORDS], completed weights uint8[n])``,
-    or ``None`` when the library is unavailable or the weights are corrupt
-    (the caller then runs the Python path, which raises the typed error)."""
-    lib = _load()
-    if lib is None:
-        return None
+    or ``None`` when the weights are corrupt (the caller then runs the
+    Python path, which raises the typed error)."""
+    lib = require()
     buf = bytes(payload)
     # One allocation and one pointer: a ctypes pointer costs more than the
     # pack itself.
@@ -262,11 +280,9 @@ def huffman_canonical(payload) -> tuple[np.ndarray, np.ndarray] | None:
 
 def fse_pack(symbol, baseline, nbits, kind: str) -> tuple[np.ndarray, np.ndarray, int] | None:
     """A sequence-code FSE table's dual planes and value bits: ``(p0, p1,
-    wbits)``, or ``None`` when the library is unavailable or a code is out
-    of ``kind``'s range (the Python path then raises the typed error)."""
-    lib = _load()
-    if lib is None:
-        return None
+    wbits)``, or ``None`` when a code is out of ``kind``'s range (the
+    Python path then raises the typed error)."""
+    lib = require()
     n = len(symbol)
     # Inputs as bytes (a copy of at most 2.5 KiB) and both planes in one
     # allocation: a ctypes pointer from numpy costs more than the pack.
@@ -284,9 +300,7 @@ def fse_pack(symbol, baseline, nbits, kind: str) -> tuple[np.ndarray, np.ndarray
 
 
 def xxh64(data, seed: int = 0) -> int:
-    lib = _load()
-    if lib is None:
-        raise NativeUnavailable("native library not built")
+    lib = require()
     arr = (
         data
         if isinstance(data, np.ndarray)
@@ -315,9 +329,7 @@ def unpack_sequences(words, cumw, nseq, w_ll, w_ml, w_of) -> tuple[np.ndarray, n
     last, unread entry).  Raises ValueError with the status message when
     a lane's words lie outside ``words`` (nothing outside is read) or its
     widths are out of range."""
-    lib = _load()
-    if lib is None:
-        raise NativeUnavailable("native library not built")
+    lib = require()
     words = np.ascontiguousarray(words, dtype=np.uint32)
     cols = [np.ascontiguousarray(a, dtype=np.int32) for a in (nseq, w_ll, w_ml, w_of)]
     cumw = np.ascontiguousarray(cumw, dtype=np.int32)
@@ -356,9 +368,7 @@ def execute_sequences(
     raises ValueError with the status message on corruption.  ``rep`` is
     a uint64[3] array, mutated.
     """
-    lib = _load()
-    if lib is None:
-        raise NativeUnavailable("native library not built")
+    lib = require()
     lit = np.frombuffer(literals, dtype=np.uint8) if not isinstance(
         literals, np.ndarray
     ) else literals
@@ -420,9 +430,7 @@ def lz77_lazy(
     is the 3-slot repeat-offset history at block start (read-only for
     the caller; offsets_to_values recomputes the updates).
     """
-    lib = _load()
-    if lib is None:
-        raise NativeUnavailable("native library not built")
+    lib = require()
     n = block_end - block_start
     max_seqs = n // 4 + 1
     ll = np.empty(max_seqs, dtype=np.int32)
@@ -484,9 +492,7 @@ def lz77_optimal(
     match length.  Returns (ll, off, ml, literals) like
     :func:`lz77_lazy`; minmatch 3 for repeats, so up to n/3 + 1
     sequences."""
-    lib = _load()
-    if lib is None:
-        raise NativeUnavailable("native library not built")
+    lib = require()
     n = block_end - block_start
     block = src[block_start:block_end]
     # Pass-1 priors: block-histogram literal entropy + flat pessimistic
@@ -590,9 +596,7 @@ def _offsets_to_values_np(lls, offs, rep):
 def resolve_offsets(ll, ofv, rep: np.ndarray) -> np.ndarray:
     """Resolve (ll, offset_value) pairs to actual offsets; mutates the
     uint64[3] ``rep`` history.  Raises ValueError on a null offset."""
-    lib = _load()
-    if lib is None:
-        raise NativeUnavailable("native library not built")
+    lib = require()
     ll = np.ascontiguousarray(ll, dtype=np.int32)
     ofv = np.ascontiguousarray(ofv, dtype=np.uint32)
     out = np.empty(len(ll), dtype=np.int64)

@@ -98,6 +98,12 @@ class MultihostEngine(DeviceEngine):
 
     # -- scattered dispatch -------------------------------------------------
 
+    def _pipelines(self) -> bool:
+        """Never: each phase's exchange is a collective that every process
+        must enter in the same order, on the same plan, so a call takes the
+        one-plan route."""
+        return False
+
     def _run_both(self, plan):
         """Sequential per-phase form: each phase's cross-process exchange
         is a collective every process must enter in the same order."""

@@ -45,7 +45,11 @@ behind a slow relay):
 * **Failures.** The per-frame oracle fallback covers the codec's own
   errors only (``ZstdError``: corrupt data, failed lane ok flags,
   checksum mismatches).  A build, launch or CUDA error propagates to
-  the caller: no path hides the device or a kernel.
+  the caller: no path hides the device or a kernel.  The host steps
+  (table packing, sequence unpack, the sequence executor) run in the
+  host C library (``csrc/host.c``, ``native``), required as the CUDA
+  build is: the engine refuses to start, with the compiler's message,
+  when it cannot be built.
 
 The engine runs on ``cuda:0`` unless the caller passes another device;
 ``device="cpu"`` runs the kernels' plain PyTorch forms (the tests).
@@ -58,9 +62,12 @@ and table banks go to each distinct device once per plan.  ``subset``
 on ``_dispatch_literals``/``_dispatch_sequences`` and the
 ``_run_*_wide`` methods decodes only those lanes (a process's bin in
 ``parallel/multihost.py``).  ``measure_phases`` splits the one-plan
-route's wall (``_run_both``).  A mesh, a subclass with its own
-``_run_both`` or ``measure_phases`` takes the one-plan route: one
-``build_batch_plan`` of the whole input, then ``_run_both``.
+route's wall (``_run_both``).  Where ``_pipelines()`` is false (a mesh,
+``measure_phases``, the multi-process engine) the call takes the
+one-plan route: one ``build_batch_plan`` of the whole input, then
+``_run_both``.  Every route launches and lands a plan's lanes through
+one pair of methods: ``_launch`` (dispatch, queued copies back, events)
+and ``_land`` (wait, unpack, wide retry).
 """
 
 from __future__ import annotations
@@ -68,20 +75,20 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass, field
+from typing import ClassVar
 
 import numpy as np
 import torch
 
+from .. import native
 from ..format.block import BlockType
-from ..format.block_table import BatchPlan, BlockPlan, FramePlan, build_batch_plan, input_words
+from ..format.block_table import BatchPlan, FramePlan, build_batch_plan, input_words
 from ..format.frame import MAX_WINDOW_SIZE, SkippableFrame, parse_frame
-from ..format.literals import LiteralsType
 from ..kernels import literals as lit_kernel
 from ..kernels import lz77 as lz77_kernel
 from ..kernels import lz77_device
 from ..kernels import sequences as seq_kernel
 from ..observability import span
-from ..ops.lz77 import execute_sequences
 from ..ops.sequence_codes import INITIAL_REPEAT_OFFSETS
 from ..utils.bits import ForwardByteCursor
 from ..utils.errors import ChecksumMismatch, ImpossibleValue, ZstdError
@@ -98,8 +105,8 @@ GROUP_BYTES = 1 << 20  # compressed bytes per pipelined frame group
 # plan); the host's lane columns, uploads, launches and queued copies
 # back; the wait on the card; the lanes' unpacking; the wide retry;
 # assembly; execute, the rebuilding of frames from their lanes' literals
-# and sequences (a frame at a time on the C executor or the Python route,
-# a group's program on the device LZ77 route), which lies inside
+# and sequences (a frame at a time on the C executor, a group's program
+# on the device LZ77 route), which lies inside
 # assembly; and the output's copy to ``bytes``, taken after ``total``.
 # ``kernels`` is the call less prepass and assembly: words, launch, wait,
 # unpack and retry lie inside it.
@@ -170,22 +177,23 @@ class EngineStats:
     retry_lanes: int = 0
     upload_bytes: int = 0
     fetch_bytes: int = 0
-    # Entropy tables the plans packed natively / on the Python path
-    # (BatchPlan.tables_native / tables_python, summed).
-    tables_native: int = 0
-    tables_python: int = 0
     # Frames of more than one block, and the bytes copied by matches whose
     # source starts before their block's first output byte; a frame that
     # falls back to the oracle adds to neither.
     multiblock_frames: int = 0
     far_match_bytes: int = 0
-    # Sequences unpacked from the fetched words by host.c / by numpy (the
-    # path without the native library).
-    seq_unpack_native: int = 0
-    seq_unpack_python: int = 0
     # Seconds of the last call: each of STEPS, prepass, kernels and total
     # (and measure_phases' four phases).
     wall_s: dict = field(default_factory=dict)
+    # What a pass over the frames adds: assembly's counters and the prepass
+    # and assembly steps.  A call whose pipelined pass fails restores them
+    # (``pass_state`` / ``restore_pass``) and keeps the one-plan pass's
+    # alone; the counters of device work keep counting the failed attempt.
+    PASS_COUNTERS: ClassVar[tuple] = (
+        "frames", "blocks", "fallback_frames", "lit_lanes", "seq_lanes", "multiblock_frames",
+        "far_match_bytes",
+    )
+    PASS_STEPS: ClassVar[tuple] = ("parse", "plan", "assembly", "execute")
 
     def as_dict(self) -> dict:
         return {
@@ -204,14 +212,35 @@ class EngineStats:
             "retry_lanes": self.retry_lanes,
             "upload_bytes": self.upload_bytes,
             "fetch_bytes": self.fetch_bytes,
-            "tables_native": self.tables_native,
-            "tables_python": self.tables_python,
             "multiblock_frames": self.multiblock_frames,
             "far_match_bytes": self.far_match_bytes,
-            "seq_unpack_native": self.seq_unpack_native,
-            "seq_unpack_python": self.seq_unpack_python,
             "wall_s": dict(self.wall_s),
         }
+
+    def pass_state(self) -> tuple:
+        return [getattr(self, k) for k in self.PASS_COUNTERS], [self.wall_s[k] for k in self.PASS_STEPS]
+
+    def restore_pass(self, state: tuple) -> None:
+        counters, steps = state
+        for k, v in zip(self.PASS_COUNTERS, counters):
+            setattr(self, k, v)
+        self.wall_s.update(zip(self.PASS_STEPS, steps))
+
+
+@dataclass
+class _Staged:
+    """One plan's launched phases (``_launch``), for ``_land``: each
+    phase's (outs, ok, pending) or None, the events after its queued
+    copies back, and measure_phases' timestamps (t0, after the launches,
+    after the uploads' wait, after the launches' wait; ``landed`` after
+    the copies' wait)."""
+
+    plan: BatchPlan
+    lit: tuple | None
+    seq: tuple | None
+    events: list
+    marks: tuple | None = None
+    landed: float = 0.0
 
 
 class DeviceEngine:
@@ -226,6 +255,7 @@ class DeviceEngine:
         device_execute: bool = False,
         mesh=None,
     ):
+        native.require()  # the host steps' C library, built or refused with its reason
         self.max_window_size = max_window_size
         # Optional parallel.mesh.LaneMesh: each launch's lanes split into
         # mesh.size contiguous blocks, each launched on its mesh device.
@@ -420,24 +450,14 @@ class DeviceEngine:
     def _finish_sequences(self, plan, pending, outs, ok) -> None:
         # Word-packed triple streams: sequence i of lane j sits at word
         # cumw[j] + i*g_j (plus a high word when g_j = 2) — one host.c pass
-        # over all lanes of the call (numpy without the library).  Prefix
-        # validity is the kernel's job (a stall flags the lane bad); packing
-        # overflow also lands in the ok flag, so every not-ok lane re-decodes
-        # wide.
-        from .. import native
-
-        stats = self.stats
-        use_native = native.available()
+        # over all lanes of the call.  Prefix validity is the kernel's job
+        # (a stall flags the lane bad); packing overflow also lands in the
+        # ok flag, so every not-ok lane re-decodes wide.
         for idx, cumw, (dense, lane_ok), cols in pending:
             words = dense.numpy().view(np.uint32)
-            stats.fetch_bytes += words.nbytes + lane_ok.numel() * 4
+            self.stats.fetch_bytes += words.nbytes + lane_ok.numel() * 4
             ok[idx] = lane_ok.numpy().astype(bool)
-            if use_native:
-                ll, ofv, ml = native.unpack_sequences(words, cumw, *cols)
-                stats.seq_unpack_native += ll.size
-            else:
-                ll, ofv, ml = unpack_sequences_numpy(words, cumw, *cols)
-                stats.seq_unpack_python += ll.size
+            ll, ofv, ml = native.unpack_sequences(words, cumw, *cols)
             starts = np.zeros(len(idx) + 1, dtype=np.int64)
             np.cumsum(cols[0], out=starts[1:])
             starts = starts.tolist()
@@ -480,116 +500,92 @@ class DeviceEngine:
                 outs[lane] = (lls, ofv[j][mask][:ns], vml[j][mask][:ns])
                 ok[lane] = bool(lane_ok[j]) and len(lls) == ns
 
-    def _run_literals(self, plan: BatchPlan):
-        return self._run_literals_wide(plan)
+    # -- launch and land --------------------------------------------------
 
-    def _run_sequences(self, plan: BatchPlan):
-        return self._run_sequences_wide(plan)
+    def _launch(self, plan: BatchPlan, *, literals=True, sequences=True, subset=None) -> _Staged:
+        """Dispatch the chosen phases over ``subset`` (every lane by
+        default), queue their outputs' copies back and record the events
+        after them.
 
-    def _run_literals_wide(self, plan: BatchPlan, subset=None):
-        """The literals phase alone over ``subset`` (every lane by
-        default): dispatch, wait, finish.  Returns (outs, ok)."""
+        With ``measure_phases``, a barrier between the launches and the
+        copies splits the wall (``_run_both``): events after the launches,
+        a wait for each device's last upload (``upload_wait``, an upper
+        bound on the uploads' share: uploads interleave with the launches
+        on each stream) and then for the launches (``device_compute``, a
+        lower bound on the kernels'), and the copies only after that
+        (``fetch``, until the copies' wait ends), as in the JAX engine."""
         stats = self.stats
-        with span(stats, "launch"):
-            outs, ok, pending = self._dispatch_literals(plan, subset)
-            pending = self._fetch_pending(pending)
-            evs = self._record_events()
-        with span(stats, "wait"):
-            _wait(evs)
-        with span(stats, "unpack"):
-            self._finish_literals(plan, pending, outs, ok)
-        return outs, ok
-
-    def _run_sequences_wide(self, plan: BatchPlan, subset=None):
-        """The sequences phase alone over ``subset``: dispatch, wait,
-        finish, then the wide retry of the subset's failed lanes (lanes
-        outside it stay ok).  Returns (outs, ok)."""
-        stats = self.stats
-        with span(stats, "launch"):
-            outs, ok, pending = self._dispatch_sequences(plan, subset)
-            pending = self._fetch_pending(pending)
-            evs = self._record_events()
-        with span(stats, "wait"):
-            _wait(evs)
-        with span(stats, "unpack"):
-            self._finish_sequences(plan, pending, outs, ok)
-        with span(stats, "retry"):
-            self._retry_sequences(plan, outs, ok)
-        return outs, ok
-
-    def _finish_both(self, plan, lit, seq, lp, sp) -> None:
-        """Unpack both phases' fetched lanes (``lp``, ``sp``) into ``lit``
-        and ``seq``, each (outs, ok), and retry the failed sequence lanes
-        wide."""
-        stats = self.stats
-        with span(stats, "unpack"):
-            self._finish_literals(plan, lp, *lit)
-            self._finish_sequences(plan, sp, *seq)
-        with span(stats, "retry"):
-            self._retry_sequences(plan, *seq)
-
-    def _run_both(self, plan: BatchPlan):
-        """Both phases over one plan, finished and retried:
-        ((lit_outs, lit_ok), (seq_outs, seq_ok)).  Every launch of both
-        phases is queued before the first wait.
-
-        With ``measure_phases`` the wall splits into ``stats.wall_s``
-        ``dispatch`` (host time queueing uploads and launches),
-        ``upload_wait`` (until an event recorded after each device's last
-        upload fires), ``device_compute`` (until an event after the last
-        launch fires) and ``fetch`` (the pinned device-to-host copies,
-        issued only after that barrier).  Uploads interleave with the
-        launches on each stream, so the last upload's event also waits for
-        the launches queued before it: ``upload_wait`` is an upper bound
-        on the upload share and ``device_compute`` a lower bound on the
-        kernels', as in the JAX engine."""
-        stats = self.stats
-        measure = self.measure_phases
         self._upload_marks = {}
         t0 = time.perf_counter()
         with span(stats, "launch"):
-            lit_outs, lit_ok, lp = self._dispatch_literals(plan)
-            seq_outs, seq_ok, sp = self._dispatch_sequences(plan)
-            if measure:
-                launched = self._record_events()
-        if measure:
+            lit = self._dispatch_literals(plan, subset) if literals else None
+            seq = self._dispatch_sequences(plan, subset) if sequences else None
+        marks = None
+        if self.measure_phases:
+            launched = self._record_events()
             t1 = time.perf_counter()
             with span(stats, "wait"):
                 _wait(self._upload_marks.values())
                 tu = time.perf_counter()
                 _wait(launched)
-            t2 = time.perf_counter()
+            marks = (t0, t1, tu, time.perf_counter())
         with span(stats, "launch"):
-            lp, sp = self._fetch_pending(lp), self._fetch_pending(sp)
+            if lit is not None:
+                lit = (*lit[:2], self._fetch_pending(lit[2]))
+            if seq is not None:
+                seq = (*seq[:2], self._fetch_pending(seq[2]))
             evs = self._record_events()
+        return _Staged(plan, lit, seq, evs, marks)
+
+    def _land(self, staged: _Staged):
+        """Wait for a launch's copies, unpack its lanes and retry the failed
+        sequence lanes wide: ((lit_outs, lit_ok), (seq_outs, seq_ok)), None
+        for a phase not launched."""
+        stats, plan, lit, seq = self.stats, staged.plan, staged.lit, staged.seq
         with span(stats, "wait"):
-            _wait(evs)
-        if measure:
-            stats.wall_s.update(
-                dispatch=t1 - t0,
-                upload_wait=tu - t1,
-                device_compute=t2 - tu,
-                fetch=time.perf_counter() - t2,
+            _wait(staged.events)
+        staged.landed = time.perf_counter()
+        with span(stats, "unpack"):
+            if lit is not None:
+                self._finish_literals(plan, lit[2], *lit[:2])
+            if seq is not None:
+                self._finish_sequences(plan, seq[2], *seq[:2])
+        if seq is not None:
+            with span(stats, "retry"):
+                self._retry_sequences(plan, *seq[:2])
+        return (None if lit is None else lit[:2]), (None if seq is None else seq[:2])
+
+    def _run_literals_wide(self, plan: BatchPlan, subset=None):
+        """The literals phase alone over ``subset``: (outs, ok)."""
+        return self._land(self._launch(plan, sequences=False, subset=subset))[0]
+
+    def _run_sequences_wide(self, plan: BatchPlan, subset=None):
+        """The sequences phase alone over ``subset``, with the wide retry of
+        the subset's failed lanes (lanes outside it stay ok): (outs, ok)."""
+        return self._land(self._launch(plan, literals=False, subset=subset))[1]
+
+    def _run_both(self, plan: BatchPlan):
+        """Both phases over one plan, every launch queued before the first
+        wait: ((lit_outs, lit_ok), (seq_outs, seq_ok)).  With
+        ``measure_phases`` the wall splits into ``stats.wall_s``
+        ``dispatch``, ``upload_wait``, ``device_compute`` and ``fetch``
+        (``_launch``)."""
+        staged = self._launch(plan)
+        both = self._land(staged)
+        if staged.marks is not None:
+            t0, t1, tu, t2 = staged.marks
+            self.stats.wall_s.update(
+                dispatch=t1 - t0, upload_wait=tu - t1, device_compute=t2 - tu,
+                fetch=staged.landed - t2,
             )
-        lit, seq = (lit_outs, lit_ok), (seq_outs, seq_ok)
-        self._finish_both(plan, lit, seq, lp, sp)
-        return lit, seq
+        return both
 
     # -- assembly -------------------------------------------------------------
 
-    def _assemble_frame(self, fp: FramePlan, lit_outs, seq_outs) -> tuple[bytes | bytearray, int]:
+    def _assemble_frame(self, fp: FramePlan, lit_outs, seq_outs) -> tuple[memoryview, int]:
         """Assemble one frame's output: exact-size preallocation and the
-        C executor when the native library is built, else pure Python.
-        Returns the output and the bytes its matches copied from earlier
-        blocks of the frame."""
-        from .. import native
-
-        if not native.available():
-            out = bytearray()
-            rep = list(INITIAL_REPEAT_OFFSETS)
-            far = sum(self._assemble_block(bp, out, rep, lit_outs, seq_outs) for bp in fp.blocks)
-            return out, far
-
+        C executor.  Returns the output and the bytes its matches copied
+        from earlier blocks of the frame."""
         total = 0
         for bp in fp.blocks:
             if bp.kind == BlockType.RAW:
@@ -627,31 +623,6 @@ class DeviceEngine:
             far += block_far
         return memoryview(out)[:out_len], far
 
-    def _assemble_block(self, bp: BlockPlan, out: bytearray, rep: list[int], lit_outs, seq_outs) -> int:
-        """Append one block's output to ``out``; returns the bytes its
-        matches copied from earlier blocks."""
-        if bp.kind == BlockType.RAW:
-            out += bp.raw
-            return 0
-        if bp.kind == BlockType.RLE:
-            out += bytes([bp.rle_byte]) * bp.rle_repeat
-            return 0
-        if bp.lit_kind == LiteralsType.RAW:
-            literals = bp.lit_raw
-        elif bp.lit_kind == LiteralsType.RLE:
-            literals = bytes([bp.lit_rle_byte]) * bp.lit_regen
-        else:
-            parts = [lit_outs[ref.lane].tobytes() if ref.regen else b"" for ref in bp.lit_streams]
-            literals = b"".join(parts)
-            if len(literals) != bp.lit_regen:
-                raise ImpossibleValue("literal stream size mismatch")
-        if bp.seq_lane < 0:
-            out += literals
-            return 0
-        ll, ofv, ml = seq_outs[bp.seq_lane]
-        triples = list(zip(ll.tolist(), ofv.tolist(), ml.tolist()))
-        return execute_sequences(out, triples, literals, rep)
-
     def _device_frames(self, plan, lit_outs, lit_ok, seq_outs, seq_ok) -> dict:
         """The device LZ77 route over one plan: the copy program of every
         frame that does not fall back, one upload, ONE lz77 launch, one
@@ -681,8 +652,6 @@ class DeviceEngine:
         stats = self.stats
         stats.lit_lanes += plan.n_lit_lanes
         stats.seq_lanes += plan.n_seq_lanes
-        stats.tables_native += plan.tables_native
-        stats.tables_python += plan.tables_python
         dev_out = None
         if self.device_execute:
             with span(stats, "execute"):
@@ -748,17 +717,15 @@ class DeviceEngine:
                 plan = build_batch_plan(
                     data, max_window_size=self.max_window_size, words=words, frames=frames
                 )
-            with span(stats, "launch"):
-                lit_outs, lit_ok, lp = self._dispatch_literals(plan)
-                seq_outs, seq_ok, sp = self._dispatch_sequences(plan)
-                lp, sp = self._fetch_pending(lp), self._fetch_pending(sp)
-                evs = self._record_events()
-            staged.append((plan, (lit_outs, lit_ok), (seq_outs, seq_ok), lp, sp, evs))
-        for plan, lit, seq, lp, sp, evs in staged:
-            with span(stats, "wait"):
-                _wait(evs)
-            self._finish_both(plan, lit, seq, lp, sp)
-            yield plan, *lit, *seq
+            staged.append(self._launch(plan))
+        for st in staged:
+            lit, seq = self._land(st)
+            yield st.plan, *lit, *seq
+
+    def _pipelines(self) -> bool:
+        """Whether a call takes the frame-group pipeline: on one device,
+        outside measure mode.  Otherwise it takes the one-plan route."""
+        return self.mesh is None and not self.measure_phases
 
     def decompress_with_stats(
         self,
@@ -779,16 +746,8 @@ class DeviceEngine:
             self._words_dev = {dev: self._upload(words, dev) for dev in self._devices()}
         out = bytearray()
         done = False
-        # The frame-group pipeline runs on one device, outside measure mode,
-        # for this class's own _run_both: a mesh, measure_phases and the
-        # multi-process engine (whose exchanges every process must enter in
-        # the same order, on the same plan) take the one-plan route.
-        if (
-            self.mesh is None
-            and type(self)._run_both is DeviceEngine._run_both
-            and not self.measure_phases
-        ):
-            snap = (stats.frames, stats.blocks, stats.fallback_frames)
+        if self._pipelines():
+            snap = stats.pass_state()
             try:
                 for g in self._iter_pipelined(data, words):
                     with span(stats, "assembly"):
@@ -803,12 +762,7 @@ class DeviceEngine:
                 out = bytearray()
                 # The failed pass counts under ``kernels``: prepass and
                 # assembly are the one-plan route's alone.
-                wall.update(parse=0.0, plan=0.0, assembly=0.0, execute=0.0)
-                stats.frames, stats.blocks, stats.fallback_frames = snap
-                stats.lit_lanes = stats.seq_lanes = 0
-                stats.tables_native = stats.tables_python = 0
-                stats.multiblock_frames = stats.far_match_bytes = 0
-                stats.seq_unpack_native = stats.seq_unpack_python = 0
+                stats.restore_pass(snap)
         if not done:
             with span(stats, "plan"):
                 plan = build_batch_plan(data, max_window_size=self.max_window_size, words=words)
@@ -898,34 +852,6 @@ def _seq_pack_meta(plan, sel, nseq):
     cumw = np.zeros(len(sel) + 1, dtype=np.int32)
     np.cumsum(nseq.astype(np.int64) * g, out=cumw[1:])
     return w_ll, w_ml, w_of, cumw
-
-
-def unpack_sequences_numpy(words, cumw, nseq, w_ll, w_ml, w_of):
-    """``native.unpack_sequences`` in numpy, for a host without the native
-    library: the fetched words (uint32) of lanes with ``nseq`` sequences
-    from word ``cumw[j]`` on, split into flat (ll int32, ofv uint32, ml
-    int32), lane after lane."""
-    one = np.uint64(1)
-    packed = np.concatenate([words, np.zeros(2, np.uint32)]).astype(np.uint64)
-    ns = np.asarray(nseq, dtype=np.int64)
-    tot = int(ns.sum())
-    w_ll, w_ml, w_of = (np.asarray(a, dtype=np.int64) for a in (w_ll, w_ml, w_of))
-    w = w_ll + w_ml + w_of
-    g = 1 + (w > 32).astype(np.int64)
-    starts = np.zeros(len(ns) + 1, dtype=np.int64)
-    np.cumsum(ns, out=starts[1:])
-    lane_rep = np.repeat(np.arange(len(ns)), ns)
-    i_local = np.arange(tot, dtype=np.int64) - starts[lane_rep]
-    wi = np.asarray(cumw[: len(ns)], dtype=np.int64)[lane_rep] + i_local * g[lane_rep]
-    v = packed[wi] | np.where(g[lane_rep] == 2, packed[wi + 1], np.uint64(0)) << np.uint64(32)
-    wr = w[lane_rep].astype(np.uint64)
-    v &= (one << wr) - one
-    wllr = w_ll[lane_rep].astype(np.uint64)
-    wmlr = w_ml[lane_rep].astype(np.uint64)
-    vll = (v & ((one << wllr) - one)).astype(np.int32)
-    vof = (v >> (wllr + wmlr)).astype(np.uint32)
-    vml = ((v >> wllr) & ((one << wmlr) - one)).astype(np.int32)
-    return vll, vof, vml
 
 
 def _seq_lane_mat(plan, sel, nseq, w_ll, w_ml, w_of) -> np.ndarray:

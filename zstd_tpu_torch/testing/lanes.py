@@ -7,18 +7,23 @@ import numpy as np
 
 
 def engine_lanes(eng, plan):
-    """One plan through an engine's own steps: ((literal outs, ok),
-    pre-retry (sequence outs, ok), post-retry (sequence outs, ok))."""
-    lit_outs, lit_ok, lp = eng._dispatch_literals(plan)
-    seq_outs, seq_ok, sp = eng._dispatch_sequences(plan)
-    lp, sp = eng._fetch_pending(lp), eng._fetch_pending(sp)
-    for ev in eng._record_events():
-        ev.synchronize()
-    eng._finish_literals(plan, lp, lit_outs, lit_ok)
-    eng._finish_sequences(plan, sp, seq_outs, seq_ok)
+    """One plan through an engine's own launch and land (``_launch``, the
+    wait and unpack of ``_land``, then ``_retry_sequences``): ((literal
+    outs, ok), pre-retry (sequence outs, ok), post-retry (sequence outs,
+    ok))."""
+    staged = eng._launch(plan)
+    own = vars(eng).get("_retry_sequences")
+    eng._retry_sequences = lambda *a: None  # the lanes as the unpack leaves them
+    try:
+        lit, (seq_outs, seq_ok) = eng._land(staged)
+    finally:
+        if own is None:
+            del eng._retry_sequences
+        else:
+            eng._retry_sequences = own
     pre = (list(seq_outs), seq_ok.copy())
     eng._retry_sequences(plan, seq_outs, seq_ok)
-    return (lit_outs, lit_ok), pre, (seq_outs, seq_ok)
+    return lit, pre, (seq_outs, seq_ok)
 
 
 def _same(a, b) -> bool:
