@@ -511,16 +511,21 @@ def lz77_phase(comp: bytes, dev) -> dict:
     check(len(idx) == len(plan.frames) and not errors, f"copy program build failed: {errors}")
     out_bytes = sum(n for _s, n in gp.outs)
     up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    _, res = measure("first_group", up(gp.ops), up(gp.op_off), up(gp.buf), out_bytes)
+    got, res = measure("first_group", up(gp.ops), up(gp.op_off), up(gp.buf), out_bytes)
     res["err"] = max(res["err"], err)  # the kernels line's max_abs_err: every comparison above
     res["host_program_build_ms"] = build_ms
     log(f"lz77 first_group: copy programs built on the host in {build_ms:.1f} ms "
         f"({gp.blob.nbytes} bytes to upload)")
 
+    host = engine.DeviceEngine()  # the host route: one host.c call a frame group
+    host_out = bytearray()
     t0 = time.perf_counter()
-    for fp in plan.frames:
-        eng._assemble_frame(fp, lo, so)
+    host._assemble_group(plan, lo, lok, so, sok, out=host_out, verify_checksum=True, include_skippable=False)
     host_s = time.perf_counter() - t0
+    flat = got.cpu().numpy()
+    check(host.stats.fallback_frames == 0, f"host C executor fell back: {host.stats.fallback_reasons}")
+    check(host_out == b"".join(flat[s : s + n].tobytes() for s, n in gp.outs),
+          "host C executor disagrees with the lz77 kernel on the first group")
     res["host_c_ns_per_byte"] = host_s * 1e9 / out_bytes
     res["kernel_ns_per_byte"] = res["ms"] * 1e6 / out_bytes
     log(f"lz77 first_group: host C executor {host_s * 1e3:.2f} ms "

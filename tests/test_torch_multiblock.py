@@ -25,7 +25,6 @@ from zstd_tpu_torch.ops.lz77 import execute_sequences
 from zstd_tpu_torch.runtime.engine import DeviceEngine
 from zstd_tpu_torch.testing import libzstd
 from zstd_tpu_torch.testing.lanes import assert_lanes_equal, engine_lanes
-from zstd_tpu_torch.utils.errors import ImpossibleValue
 
 BLOCK = 1 << 15  # libzstd's block size at window_log 15
 
@@ -139,21 +138,23 @@ def test_a_fallback_frame_adds_nothing(monkeypatch):
     """A frame whose assembly fails is decoded by the oracle and adds
     nothing to the counters; the other frame still counts."""
     data, raws = _frames()
-    assemble, calls = DeviceEngine._assemble_frame, []
+    _out, good = _decoded("pipelined")  # before the patch
+    assemble, calls = native.assemble_group, []
 
-    def fail_first(self, fp, lit_outs, seq_outs):
-        calls.append(1)
-        frame_out, far = assemble(self, fp, lit_outs, seq_outs)
-        if len(calls) == 1:
-            raise ImpossibleValue("injected")
-        return frame_out, far
+    def fail_first(out, frames, *rest):
+        # The group call runs both frames; the first then reads as failed
+        # with the executor's null-offset status.
+        res, exact = assemble(out, frames, *rest)
+        calls.append(len(frames))
+        res[0, native.R_STATUS] = 1
+        return res, exact
 
-    monkeypatch.setattr(DeviceEngine, "_assemble_frame", fail_first)
+    monkeypatch.setattr(native, "assemble_group", fail_first)
     eng = DeviceEngine(device="cpu")
     assert eng.decompress(data) == b"".join(raws)
     st = eng.stats
-    assert st.fallback_frames == 1 and len(calls) == 2
-    _out, good = _decoded("pipelined")
+    assert st.fallback_frames == 1 and calls == [2]
+    assert st.fallback_reasons == ["assembly: ImpossibleValue('sequence execution failed: null offset')"]
     assert st.multiblock_frames == 1
     assert 0 < st.far_match_bytes < good.far_match_bytes
 

@@ -78,7 +78,7 @@ def test_replan_keeps_the_one_plan_prepass_and_assembly(monkeypatch):
 
 ASSEMBLY_COUNTERS = (
     "frames", "blocks", "fallback_frames", "lit_lanes", "seq_lanes", "multiblock_frames",
-    "far_match_bytes",
+    "far_match_bytes", "exact_tail_sequences",
 )
 
 
@@ -125,7 +125,7 @@ def test_steps_in_the_profiler_only_while_it_records(monkeypatch):
     assert {n for n, _a, _b in spans} == {observability.SPAN_PREFIX + k for k in STEPS}
     assert all(call[1] <= a <= b <= call[2] for _n, a, b in spans)
     for step in ("plan", "execute"):
-        # one a frame group; execute is one a frame, and each group holds one
+        # one a frame group
         assert sum(e[0] == observability.SPAN_PREFIX + step for e in spans) == 4
 
     def refuse(*a, **kw):

@@ -7,8 +7,10 @@
  *   - zt_xxh64: frame content checksums, from the public XXH64 spec.
  *   - zt_unpack_sequences: the sequences kernel's fetched word stream
  *     split into (ll, offset value, ml) arrays (the engine's finish).
- *   - zt_execute_sequences: LZ77 sequence execution with memcpy-chunked,
- *     overlap-correct copies (the engine's host assembly stage).
+ *   - zt_assemble_group: a frame group's frames assembled from their
+ *     lanes' literals and sequences, one call a group (the engine's host
+ *     assembly); zt_execute_sequences: its sequence executor on one
+ *     block.
  *   - zt_resolve_offsets: the repeat-offset scan of the device LZ77 route
  *     (kernels/lz77_device.py).
  *   - zt_fse_parse_build / zt_fse_weights: FSE table parse + build and
@@ -25,6 +27,7 @@
 
 #include <stddef.h>
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
 #define EXPORT __attribute__((visibility("default")))
@@ -113,7 +116,66 @@ EXPORT uint64_t zt_xxh64(const uint8_t *data, size_t n, uint64_t seed) {
 
 /* ------------------------ LZ77 sequence execution ----------------------- */
 
-/* Overlap-correct append of `length` bytes from `offset` back.
+/* Bytes past its end that a strided copy may write, and read from its
+ * source: the slack an output or a literal buffer needs for the fast
+ * path to run up to its last byte (libzstd's WILDCOPY_OVERLENGTH). */
+#define ZT_WILD 32
+
+static inline void copy8(uint8_t *d, const uint8_t *s) { memcpy(d, s, 8); }
+static inline void copy16(uint8_t *d, const uint8_t *s) { memcpy(d, s, 16); }
+
+/* Copy `len` bytes in 16-byte steps, the first alone and then two a
+ * loop, each step's load before its store and each store before the next
+ * load: right for disjoint buffers and for a source 16 or more bytes
+ * before its destination.  Reads and writes up to ZT_WILD - 1 bytes past
+ * `len`. */
+static inline void wildcopy(uint8_t *d, const uint8_t *s, size_t len) {
+    uint8_t *const end = d + len;
+    copy16(d, s);
+    if (len <= 16) return;
+    d += 16;
+    s += 16;
+    do {
+        copy16(d, s);
+        d += 16;
+        s += 16;
+        copy16(d, s);
+        d += 16;
+        s += 16;
+    } while (d < end);
+}
+
+/* A match of `len` bytes from `offset` (1 to 15) back: libzstd's
+ * ZSTD_overlapCopy8 spreads the first 8 bytes so that the source then
+ * lies 8 or more bytes behind (a multiple of the period), then 8-byte
+ * steps.  Writes up to 8 bytes past `len`. */
+static inline void overlap_match(uint8_t *d, size_t offset, size_t len) {
+    static const uint32_t inc[8] = {0, 1, 2, 1, 4, 4, 4, 4}; /* dec32table */
+    static const uint32_t dec[8] = {8, 8, 8, 7, 8, 9, 10, 11}; /* dec64table */
+    const uint8_t *s = d - offset;
+    uint8_t *const end = d + len;
+    if (offset < 8) {
+        d[0] = s[0];
+        d[1] = s[1];
+        d[2] = s[2];
+        d[3] = s[3];
+        s += inc[offset];
+        memcpy(d + 4, s, 4);
+        s -= dec[offset];
+    } else {
+        copy8(d, s);
+    }
+    s += 8;
+    d += 8;
+    while (d < end) {
+        copy8(d, s);
+        d += 8;
+        s += 8;
+    }
+}
+
+/* Overlap-correct append of `length` bytes from `offset` back, touching
+ * no byte past its end (the bounds-exact path).
  * Precondition: offset <= out_len, capacity checked by caller. */
 static inline void copy_match(uint8_t *out, size_t out_len, size_t offset,
                               size_t length) {
@@ -144,6 +206,14 @@ enum {
     ZT_ERR_OUTPUT_OVERFLOW = 4,
     ZT_ERR_WORDS_RANGE = 5,
     ZT_ERR_FIELD_WIDTHS = 6,
+    /* A frame's status in zt_assemble_group: */
+    ZT_ERR_LITERALS_SIZE = 7, /* a block's streams do not add up to its regenerated size */
+    ZT_ERR_CHECKSUM = 8,
+    ZT_ERR_CONTENT_SIZE = 9,
+    ZT_FRAME_SKIPPED = 10, /* flagged by the caller: not run */
+    ZT_FRAME_LANES = 11,   /* one of its lanes is not ok: not run */
+    ZT_NEED_ROOM = 12,     /* does not fit: the call stopped before it */
+    ZT_ERR_TABLE = 13,     /* a table entry out of range: nothing trusted */
 };
 
 /* Unpack the sequences kernel's compacted word stream, as fetched to the
@@ -186,109 +256,326 @@ EXPORT int zt_unpack_sequences(
     return ZT_OK;
 }
 
-/* The bytes of the matches among `n` sequences that already ran without
- * error whose source starts before their block's first output byte, from
- * the repeat history `rep` as it was at the block's start (mutated). */
-static size_t far_match_bytes(const int32_t *ll_arr, const uint32_t *ofv_arr,
-                              const int32_t *ml_arr, size_t n, uint64_t *rep) {
-    size_t pos = 0, far = 0; /* output bytes of the block so far */
-    for (size_t i = 0; i < n; i++) {
-        size_t ll = (size_t)ll_arr[i];
-        uint64_t ofv = ofv_arr[i];
-        uint64_t offset;
-        if (ofv > 3) {
-            offset = ofv - 3;
-            rep[2] = rep[1];
-            rep[1] = rep[0];
-            rep[0] = offset;
-        } else {
-            uint64_t idx = (ll != 0) ? ofv - 1 : ofv; /* as in the loop below */
-            offset = idx == 3 ? rep[0] - 1 : rep[idx];
-            if (idx > 0) {
-                if (idx > 1) rep[2] = rep[1];
-                rep[1] = rep[0];
-                rep[0] = offset;
-            }
-        }
-        pos += ll;
-        if (offset > pos) far += (size_t)ml_arr[i];
-        pos += (size_t)ml_arr[i];
-    }
-    return far;
-}
-
 /* Execute `n` sequences (ll[i], offset_value[i], ml[i]) into `out`
  * (which already holds `out_len` bytes of earlier frame output),
  * consuming `literals` and maintaining the 3-slot repeat history `rep`
  * (RFC 8878 §3.1.1.5; decoding_context.rs:50-107).  Trailing literals
  * are appended.  Returns ZT_OK or an error code; *out_len_io is updated
- * to the new output length on success.  When `far_io` is not NULL, the
- * bytes of every match whose source starts before the call's first
- * output byte (in an earlier block of the frame) are added to it, by a
- * second pass (far_match_bytes) that leaves this loop as it was; a call
- * at output 0 (a frame's first block) has no such match and skips it. */
+ * to the new output length on success.  `cap` bounds the output
+ * (ZT_ERR_OUTPUT_OVERFLOW past it); `wend` >= cap is the end of the bytes
+ * the call may write, and `lit_end` >= lit_len the end of the literal
+ * bytes it may read.  A sequence whose literals end ZT_WILD or more bytes
+ * before `lit_end` and whose output ends ZT_WILD or more bytes before
+ * `wend` copies in 16- and 32-byte strides (wildcopy, overlap_match), its
+ * copies overrunning into bytes that later sequences write; any other
+ * takes the bounds-exact path and is counted in *exact_io.  When `far_io`
+ * is not NULL, the bytes of every match whose source starts before the
+ * call's first output byte (in an earlier block of the frame) are added
+ * to it on success.  The repeat history lives in locals and goes back to
+ * `rep` on return, as it stood after the last sequence resolved (the
+ * failing one's resolution included when it failed past it). */
+static int execute_block(
+    uint8_t *out, size_t cap, size_t wend, size_t *out_len_io,
+    const uint8_t *literals, size_t lit_len, size_t lit_end,
+    const int32_t *ll_arr, const uint32_t *ofv_arr, const int32_t *ml_arr,
+    size_t n, uint64_t *rep, size_t *far_io, size_t *exact_io) {
+    uint64_t r0 = rep[0], r1 = rep[1], r2 = rep[2];
+    const size_t start = *out_len_io;
+    size_t out_len = start;
+    size_t lit_pos = 0, exact = 0, far = 0;
+    int status = ZT_OK;
+
+    for (size_t i = 0; i < n; i++) {
+        size_t ll = (uint32_t)ll_arr[i];
+        size_t ml = (uint32_t)ml_arr[i];
+        uint64_t ofv = ofv_arr[i];
+        uint64_t offset;
+
+        /* RFC 8878 repeat offsets: a value above 3 is a new offset; 1-3 name
+         * rep[ofv - 1], shifted by one when ll == 0, where the fourth is
+         * rep[0] - 1.  A repeat moves to the front; the new offset and the
+         * repeats past rep[1] push the history down. */
+        uint64_t idx = ofv - (ll != 0);
+        int is_new = ofv > 3;
+        uint64_t pick = idx == 0 ? r0 : idx == 1 ? r1 : idx == 2 ? r2 : r0 - 1;
+        offset = is_new ? ofv - 3 : pick;
+        if (__builtin_expect(ofv == 0 || offset == 0, 0)) { status = ZT_ERR_NULL_OFFSET; goto done; }
+        {
+            uint64_t n2 = (is_new | (idx >= 2)) ? r1 : r2;
+            uint64_t n1 = (is_new | (idx != 0)) ? r0 : r1;
+            r0 = offset;
+            r1 = n1;
+            r2 = n2;
+        }
+
+        if (ll > lit_len - lit_pos) { status = ZT_ERR_LITERALS_OVERRUN; goto done; }
+        if (out_len + ll + ml > cap) { status = ZT_ERR_OUTPUT_OVERFLOW; goto done; }
+        if (offset > out_len + ll) { status = ZT_ERR_OFFSET_TOO_FAR; goto done; }
+        uint8_t *op = out + out_len;
+        const uint8_t *lp = literals + lit_pos;
+        far += offset > out_len + ll - start ? ml : 0;
+        out_len += ll + ml;
+        lit_pos += ll;
+        if (lit_pos + ZT_WILD <= lit_end && out_len + ZT_WILD <= wend) {
+            wildcopy(op, lp, ll);
+            op += ll;
+            if (offset >= 16)
+                wildcopy(op, op - offset, ml);
+            else
+                overlap_match(op, (size_t)offset, ml);
+        } else {
+            if (ll) memcpy(op, lp, ll);
+            copy_match(out, out_len - ml, (size_t)offset, ml);
+            exact++;
+        }
+    }
+
+    {
+        size_t tail = lit_len - lit_pos;
+        if (out_len + tail > cap) { status = ZT_ERR_OUTPUT_OVERFLOW; goto done; }
+        if (tail) memcpy(out + out_len, literals + lit_pos, tail);
+        out_len += tail;
+    }
+    if (far_io) *far_io += far;
+    *exact_io += exact;
+    *out_len_io = out_len;
+done:
+    rep[0] = r0;
+    rep[1] = r1;
+    rep[2] = r2;
+    return status;
+}
+
+/* execute_block over an output of exactly `cap` bytes and literals of
+ * exactly `lit_len`: the one-block entry (native.execute_sequences). */
 EXPORT int zt_execute_sequences(
     uint8_t *out, size_t cap, size_t *out_len_io,
     const uint8_t *literals, size_t lit_len,
     const int32_t *ll_arr, const uint32_t *ofv_arr, const int32_t *ml_arr,
     size_t n, uint64_t *rep /* [3] */, size_t *far_io) {
-    uint64_t rep_in[3] = {rep[0], rep[1], rep[2]};
-    size_t out_len = *out_len_io;
-    size_t lit_pos = 0;
+    size_t exact = 0;
+    return execute_block(out, cap, cap, out_len_io, literals, lit_len, lit_len,
+                         ll_arr, ofv_arr, ml_arr, n, rep, far_io, &exact);
+}
 
-    for (size_t i = 0; i < n; i++) {
-        size_t ll = (size_t)ll_arr[i];
-        size_t ml = (size_t)ml_arr[i];
-        uint64_t ofv = ofv_arr[i];
-        uint64_t offset;
+/* ------------------------- frame group assembly ------------------------ */
 
-        if (ofv == 0) return ZT_ERR_NULL_OFFSET;
-        if (ofv > 3) {
-            offset = ofv - 3;
-            rep[2] = rep[1];
-            rep[1] = rep[0];
-            rep[0] = offset;
-        } else {
-            uint64_t idx = (ll != 0) ? ofv - 1 : ofv;
-            if (idx == 0) {
-                offset = rep[0];
-            } else if (idx == 1) {
-                offset = rep[1];
-                rep[1] = rep[0];
-                rep[0] = offset;
-            } else if (idx == 2) {
-                offset = rep[2];
-                rep[2] = rep[1];
-                rep[1] = rep[0];
-                rep[0] = offset;
-            } else { /* idx == 3: ll == 0 && ofv == 3 -> rep0 - 1 */
-                offset = rep[0] - 1;
-                if (offset == 0) return ZT_ERR_NULL_OFFSET;
-                rep[2] = rep[1];
-                rep[1] = rep[0];
-                rep[0] = offset;
+/* zt_assemble_group's tables, int64 rows (keep in sync with
+ * zstd_tpu_torch/native/__init__.py).  A frame: its first block row, its
+ * block count, flags, the header's content size (-1: none), the stored
+ * checksum, and the caller's estimate of its size.  A block: its kind
+ * (BlockType), a payload address (a raw block's bytes, raw literals),
+ * that payload's length (a raw block's size, an RLE block's repeat, raw
+ * literals' size, else the regenerated literals' size), the RLE byte
+ * (block or literals), the literals' kind (LiteralsType), 4 literal
+ * lanes (-1: none) and the sequence lane (-1: none).  A result: status,
+ * start in the buffer, length, far-match bytes, computed checksum. */
+enum { F_BLOCK0, F_NBLOCKS, F_FLAGS, F_CSIZE, F_CHECKSUM, F_EST, F_COLS };
+enum { B_KIND, B_PTR, B_LEN, B_BYTE, B_LITKIND, B_LANES, B_SEQ = B_LANES + 4, B_COLS };
+enum { R_STATUS, R_START, R_LEN, R_FAR, R_CHECKSUM, R_COLS };
+enum { FLAG_SKIP = 1, FLAG_CHECKSUM = 2 };
+enum { BLOCK_RAW = 0, BLOCK_RLE = 1, LIT_RAW = 0, LIT_RLE = 1 };
+
+typedef struct {
+    const int64_t *lit_ptr, *lit_len, *seq_ptr, *seq_n;
+    const uint8_t *lit_ok, *seq_ok;
+    size_t n_lit, n_seq;
+    uint8_t *scratch; /* joined or RLE literals, with ZT_WILD bytes of slack */
+    size_t scratch_cap;
+} lanes_t;
+
+/* Whether every lane the frame's blocks name exists and is ok. */
+static int frame_lanes_ok(const int64_t *blk, size_t nb, const lanes_t *L) {
+    for (size_t b = 0; b < nb; b++, blk += B_COLS) {
+        for (int k = 0; k < 4; k++) {
+            int64_t lane = blk[B_LANES + k];
+            if (lane >= 0 && ((size_t)lane >= L->n_lit || !L->lit_ok[lane])) return 0;
+        }
+        int64_t seq = blk[B_SEQ];
+        if (seq >= 0 && ((size_t)seq >= L->n_seq || !L->seq_ok[seq])) return 0;
+    }
+    return 1;
+}
+
+/* The bytes a frame writes when it runs without error. */
+static size_t frame_need(const int64_t *blk, size_t nb, const lanes_t *L) {
+    size_t need = 0;
+    for (size_t b = 0; b < nb; b++, blk += B_COLS) {
+        need += (size_t)blk[B_LEN];
+        int64_t seq = blk[B_SEQ];
+        if (blk[B_KIND] > BLOCK_RLE && seq >= 0) {
+            const int32_t *ml = (const int32_t *)(uintptr_t)L->seq_ptr[3 * seq + 2];
+            for (int64_t i = 0; i < L->seq_n[seq]; i++) need += (uint32_t)ml[i];
+        }
+    }
+    return need;
+}
+
+/* A scratch buffer of at least n + ZT_WILD bytes, or NULL. */
+static uint8_t *scratch(lanes_t *L, size_t n) {
+    if (L->scratch_cap < n + ZT_WILD) {
+        size_t want = n + ZT_WILD > (128u << 10) + ZT_WILD ? n + ZT_WILD : (128u << 10) + ZT_WILD;
+        uint8_t *p = realloc(L->scratch, want);
+        if (!p) return NULL;
+        L->scratch = p;
+        L->scratch_cap = want;
+    }
+    return L->scratch;
+}
+
+/* Run one frame's `nb` blocks into out[0, cap), writing no byte at or
+ * past `wend`: raw and RLE blocks, then each compressed block's literals
+ * (raw or a single stream read in place; RLE or the streams joined into
+ * scratch) and its sequences through execute_block, the repeat history
+ * carried from block to block. */
+static int run_frame(uint8_t *out, size_t cap, size_t wend, const int64_t *blk, size_t nb,
+                     lanes_t *L, size_t *len_out, size_t *far_out, size_t *exact_io) {
+    uint64_t rep[3] = {1, 4, 8}; /* the initial repeat offsets (RFC 8878) */
+    size_t len = 0;
+    for (size_t b = 0; b < nb; b++, blk += B_COLS) {
+        size_t n = (size_t)blk[B_LEN];
+        const uint8_t *src = (const uint8_t *)(uintptr_t)blk[B_PTR];
+        if (blk[B_KIND] == BLOCK_RAW || blk[B_KIND] == BLOCK_RLE) {
+            if (n > cap - len) return ZT_ERR_OUTPUT_OVERFLOW;
+            if (blk[B_KIND] == BLOCK_RAW) {
+                if (n) memcpy(out + len, src, n);
+            } else {
+                memset(out + len, (int)blk[B_BYTE], n);
+            }
+            len += n;
+            continue;
+        }
+        const uint8_t *lit = src;
+        size_t lit_end = n;
+        if (blk[B_LITKIND] == LIT_RLE) {
+            uint8_t *s = scratch(L, n);
+            if (!s) return ZT_ERR_OUTPUT_OVERFLOW;
+            memset(s, (int)blk[B_BYTE], n);
+            lit = s;
+            lit_end = L->scratch_cap;
+        } else if (blk[B_LITKIND] != LIT_RAW) {
+            size_t total = 0, parts = 0;
+            for (int k = 0; k < 4; k++) {
+                int64_t lane = blk[B_LANES + k];
+                if (lane >= 0 && L->lit_len[lane] > 0) {
+                    total += (size_t)L->lit_len[lane];
+                    parts++;
+                    lit = (const uint8_t *)(uintptr_t)L->lit_ptr[lane];
+                }
+            }
+            if (total != n) return ZT_ERR_LITERALS_SIZE;
+            if (parts > 1) {
+                uint8_t *s = scratch(L, n);
+                if (!s) return ZT_ERR_OUTPUT_OVERFLOW;
+                size_t at = 0;
+                for (int k = 0; k < 4; k++) {
+                    int64_t lane = blk[B_LANES + k];
+                    if (lane >= 0 && L->lit_len[lane] > 0) {
+                        memcpy(s + at, (const uint8_t *)(uintptr_t)L->lit_ptr[lane], (size_t)L->lit_len[lane]);
+                        at += (size_t)L->lit_len[lane];
+                    }
+                }
+                lit = s;
+                lit_end = L->scratch_cap;
             }
         }
-
-        if (ll > lit_len - lit_pos) return ZT_ERR_LITERALS_OVERRUN;
-        if (out_len + ll + ml > cap) return ZT_ERR_OUTPUT_OVERFLOW;
-        memcpy(out + out_len, literals + lit_pos, ll);
-        out_len += ll;
-        lit_pos += ll;
-        if (offset > out_len) return ZT_ERR_OFFSET_TOO_FAR;
-        copy_match(out, out_len, (size_t)offset, ml);
-        out_len += ml;
+        int64_t seq = blk[B_SEQ];
+        if (seq < 0) {
+            if (n > cap - len) return ZT_ERR_OUTPUT_OVERFLOW;
+            if (n) memcpy(out + len, lit, n);
+            len += n;
+            continue;
+        }
+        const int64_t *p = L->seq_ptr + 3 * seq;
+        int status = execute_block(
+            out, cap, wend, &len, lit, n, lit_end, (const int32_t *)(uintptr_t)p[0],
+            (const uint32_t *)(uintptr_t)p[1], (const int32_t *)(uintptr_t)p[2],
+            (size_t)L->seq_n[seq], rep, far_out, exact_io);
+        if (status != ZT_OK) return status;
     }
-
-    size_t tail = lit_len - lit_pos;
-    if (out_len + tail > cap) return ZT_ERR_OUTPUT_OVERFLOW;
-    memcpy(out + out_len, literals + lit_pos, tail);
-    out_len += tail;
-
-    if (far_io && *out_len_io > 0)
-        *far_io += far_match_bytes(ll_arr, ofv_arr, ml_arr, n, rep_in);
-    *out_len_io = out_len;
+    *len_out = len;
     return ZT_OK;
+}
+
+/* Assemble frames [first, n_frames) of a frame group into buf, one after
+ * another from *pos_io: each frame not flagged FLAG_SKIP whose lanes are
+ * all ok runs its blocks (run_frame), then, with FLAG_CHECKSUM, its XXH64
+ * is checked against the stored checksum, then its length against the
+ * content size.  A frame that fails leaves nothing: the next starts where
+ * it did.  Writes stay below `wend` (at least cap + ZT_WILD for the
+ * strided path to reach the last frame's end).  A frame that needs more
+ * than cap - its start stops the call with ZT_NEED_ROOM, its result's
+ * length the bytes it needs; frames after it are not run.  Returns ZT_OK,
+ * ZT_NEED_ROOM or ZT_ERR_TABLE (a block or lane index out of range, found
+ * before anything runs); *pos_io is the end of the last frame written,
+ * and the sequences that took the bounds-exact path in frames that ran to
+ * a status are added to *exact_io (a frame stopped for room counts when
+ * it runs again). */
+EXPORT int zt_assemble_group(
+    uint8_t *buf, size_t cap, size_t wend, size_t *pos_io,
+    const int64_t *frames, size_t first, size_t n_frames,
+    const int64_t *blocks, size_t n_blocks,
+    const int64_t *lit_ptr, const int64_t *lit_len, const uint8_t *lit_ok, size_t n_lit,
+    const int64_t *seq_ptr, const int64_t *seq_n, const uint8_t *seq_ok, size_t n_seq,
+    int64_t *res, size_t *exact_io) {
+    lanes_t L = {lit_ptr, lit_len, seq_ptr, seq_n, lit_ok, seq_ok, n_lit, n_seq, NULL, 0};
+    for (size_t f = first; f < n_frames; f++) {
+        const int64_t *fr = frames + f * F_COLS;
+        if (fr[F_BLOCK0] < 0 || fr[F_NBLOCKS] < 0 || (size_t)(fr[F_BLOCK0] + fr[F_NBLOCKS]) > n_blocks)
+            return ZT_ERR_TABLE;
+        const int64_t *blk = blocks + fr[F_BLOCK0] * B_COLS;
+        for (int64_t b = 0; b < fr[F_NBLOCKS]; b++) {
+            int64_t seq = blk[b * B_COLS + B_SEQ];
+            if (seq >= 0 && (size_t)seq >= n_seq) return ZT_ERR_TABLE;
+            for (int k = 0; k < 4; k++)
+                if (blk[b * B_COLS + B_LANES + k] >= (int64_t)n_lit) return ZT_ERR_TABLE;
+        }
+    }
+    size_t pos = *pos_io;
+    int ret = ZT_OK;
+    for (size_t f = first; f < n_frames; f++) {
+        const int64_t *fr = frames + f * F_COLS;
+        int64_t *r = res + f * R_COLS;
+        const int64_t *blk = blocks + fr[F_BLOCK0] * B_COLS;
+        size_t nb = (size_t)fr[F_NBLOCKS];
+        size_t len = 0, far = 0, exact = 0;
+        r[R_START] = (int64_t)pos;
+        r[R_LEN] = r[R_FAR] = r[R_CHECKSUM] = 0;
+        if (fr[F_FLAGS] & FLAG_SKIP) {
+            r[R_STATUS] = ZT_FRAME_SKIPPED;
+            continue;
+        }
+        if (!frame_lanes_ok(blk, nb, &L)) {
+            r[R_STATUS] = ZT_FRAME_LANES;
+            continue;
+        }
+        int status = run_frame(buf + pos, cap - pos, wend - pos, blk, nb, &L, &len, &far, &exact);
+        if (status == ZT_ERR_OUTPUT_OVERFLOW) {
+            size_t need = frame_need(blk, nb, &L);
+            if (need > cap - pos) { /* runs again, and is counted, once it fits */
+                r[R_STATUS] = ZT_NEED_ROOM;
+                r[R_LEN] = (int64_t)need;
+                ret = ZT_NEED_ROOM;
+                break;
+            }
+        }
+        *exact_io += exact;
+        if (status == ZT_OK && (fr[F_FLAGS] & FLAG_CHECKSUM)) {
+            uint64_t h = zt_xxh64(buf + pos, len, 0) & 0xFFFFFFFFu;
+            r[R_CHECKSUM] = (int64_t)h;
+            if (h != (uint64_t)fr[F_CHECKSUM]) status = ZT_ERR_CHECKSUM;
+        }
+        if (status == ZT_OK && fr[F_CSIZE] >= 0 && len != (size_t)fr[F_CSIZE]) status = ZT_ERR_CONTENT_SIZE;
+        r[R_STATUS] = status;
+        r[R_LEN] = (int64_t)len;
+        if (status == ZT_OK) {
+            r[R_FAR] = (int64_t)far;
+            pos += len;
+        }
+    }
+    free(L.scratch);
+    *pos_io = pos;
+    return ret;
 }
 
 /* ---------------------------- LZ77 hashing ----------------------------- */

@@ -12,8 +12,11 @@ the repository root, and exposes the decode side:
 * ``xxh64(data, seed)``
 * ``unpack_sequences(words, cumw, nseq, w_ll, w_ml, w_of)`` (the
   sequences kernel's fetched words split into (ll, ofv, ml))
-* ``execute_sequences(out, out_len, literals, ll, ofv, ml, rep)`` (with
-  the bytes its matches copy from earlier blocks)
+* ``assemble_group(out, frames, blocks, ...)`` (a frame group's frames
+  assembled onto a ``bytearray`` in one call, with each frame's status)
+  and ``execute_sequences(out, out_len, literals, ll, ofv, ml, rep)``
+  (its executor on one block, with the bytes its matches copy from
+  earlier blocks)
 * ``resolve_offsets(ll, ofv, rep)`` (the device LZ77 route's offset scan)
 
 and the encoder's match finders (``encode.py``):
@@ -97,6 +100,28 @@ def _load() -> ctypes.CDLL | None:
             ctypes.c_size_t,  # n
             ctypes.c_void_p,  # rep uint64[3]
             ctypes.POINTER(ctypes.c_size_t),  # far-match bytes io (may be NULL)
+        ]
+        lib.zt_assemble_group.restype = ctypes.c_int
+        lib.zt_assemble_group.argtypes = [
+            ctypes.c_void_p,  # buf
+            ctypes.c_size_t,  # cap
+            ctypes.c_size_t,  # wend (cap + SLACK)
+            ctypes.POINTER(ctypes.c_size_t),  # pos io
+            ctypes.c_void_p,  # frames int64[n_frames, FRAME_COLS]
+            ctypes.c_size_t,  # first frame to run
+            ctypes.c_size_t,  # n_frames
+            ctypes.c_void_p,  # blocks int64[n_blocks, BLOCK_COLS]
+            ctypes.c_size_t,  # n_blocks
+            ctypes.c_void_p,  # lit_ptr int64[n_lit]
+            ctypes.c_void_p,  # lit_len int64[n_lit]
+            ctypes.c_void_p,  # lit_ok uint8[n_lit]
+            ctypes.c_size_t,  # n_lit
+            ctypes.c_void_p,  # seq_ptr int64[n_seq, 3] (ll, ofv, ml)
+            ctypes.c_void_p,  # seq_n int64[n_seq]
+            ctypes.c_void_p,  # seq_ok uint8[n_seq]
+            ctypes.c_size_t,  # n_seq
+            ctypes.c_void_p,  # res int64[n_frames, RESULT_COLS]
+            ctypes.POINTER(ctypes.c_size_t),  # exact-path sequences io
         ]
         lib.zt_unpack_sequences.restype = ctypes.c_int
         lib.zt_unpack_sequences.argtypes = [
@@ -392,8 +417,89 @@ def execute_sequences(
         ctypes.byref(far),
     )
     if status != 0:
-        raise ValueError(f"sequence execution failed: {_STATUS.get(status, status)}")
+        raise ValueError(execute_status(status))
     return out_len_c.value, far.value
+
+
+# zt_assemble_group (csrc/host.c): the bytes a strided copy may write past
+# an output's end; the tables' columns (a frame: first block row, block
+# count, flags, content size or -1, stored checksum, size estimate; a
+# block: kind, payload address, payload length, RLE byte, literals kind,
+# 4 literal lanes, sequence lane; a result: status, start, length,
+# far-match bytes, computed checksum); a frame's flags; the frame
+# statuses beside the executor's 1-4.
+SLACK = 32
+FRAME_COLS, BLOCK_COLS, RESULT_COLS = 6, 10, 5
+F_EST = 5
+R_STATUS, R_LEN, R_FAR = 0, 2, 3
+FLAG_SKIP, FLAG_CHECKSUM = 1, 2
+FRAME_OK, LITERALS_SIZE, CHECKSUM, CONTENT_SIZE, LANES, NEED_ROOM, TABLE = 0, 7, 8, 9, 11, 12, 13
+
+_resize = ctypes.pythonapi.PyByteArray_Resize
+_resize.argtypes = [ctypes.py_object, ctypes.c_ssize_t]
+_resize.restype = ctypes.c_int
+
+
+def execute_status(status: int) -> str:
+    """The message of an executor status (1-4), as ``execute_sequences``
+    raises it."""
+    return f"sequence execution failed: {_STATUS.get(status, status)}"
+
+
+def assemble_group(
+    out: bytearray, frames, blocks, lit_ptr, lit_len, lit_ok, seq_ptr, seq_n, seq_ok
+) -> tuple[np.ndarray, int]:
+    """Assemble a frame group onto the end of ``out`` with one
+    ``zt_assemble_group`` call: ``out`` grows once by the frames'
+    estimated sizes (``frames[:, F_EST]``) plus ``SLACK``, the call writes
+    the frames there, and the slack and whatever the estimates left over
+    are cut off.  A frame that outgrows the estimates stops the call; the
+    buffer then grows by what it needs and the call goes on from it.
+
+    ``frames`` int64[F, FRAME_COLS] and ``blocks`` int64[B, BLOCK_COLS]
+    are the group's tables; the lanes' outputs are given by address and
+    length (``lit_ptr``, ``lit_len``; ``seq_ptr`` int64[S, 3] of ll int32,
+    ofv uint32, ml int32 and ``seq_n``) and ok flags (bool).  The caller
+    keeps every addressed array alive through the call.
+
+    Returns ``(res, exact)``: int64[F, RESULT_COLS] of each frame's
+    status, start in ``out``, length, far-match bytes and computed
+    checksum (the frames that ran OK lie one after another in ``out``),
+    and the count of sequences that took the bounds-exact path.  Raises
+    ValueError when a table names a block or lane out of range."""
+    lib = require()
+    frames = np.ascontiguousarray(frames, dtype=np.int64)
+    blocks = np.ascontiguousarray(blocks, dtype=np.int64)
+    lit_ptr = np.ascontiguousarray(lit_ptr, dtype=np.int64)
+    lit_len = np.ascontiguousarray(lit_len, dtype=np.int64)
+    lit_ok = np.ascontiguousarray(lit_ok, dtype=np.bool_)
+    seq_ptr = np.ascontiguousarray(seq_ptr, dtype=np.int64)
+    seq_n = np.ascontiguousarray(seq_n, dtype=np.int64)
+    seq_ok = np.ascontiguousarray(seq_ok, dtype=np.bool_)
+    n = len(frames)
+    res = np.zeros((n, RESULT_COLS), dtype=np.int64)
+    est = frames[:, F_EST]
+    pos = ctypes.c_size_t(len(out))
+    exact = ctypes.c_size_t(0)
+    first = 0
+    cap = len(out) + int(est.sum())
+    while True:
+        _resize(out, cap + SLACK)
+        status = lib.zt_assemble_group(
+            ctypes.addressof(ctypes.c_char.from_buffer(out)), cap, cap + SLACK, ctypes.byref(pos),
+            frames.ctypes.data, first, n, blocks.ctypes.data, len(blocks),
+            lit_ptr.ctypes.data, lit_len.ctypes.data, lit_ok.ctypes.data, len(lit_ptr),
+            seq_ptr.ctypes.data, seq_n.ctypes.data, seq_ok.ctypes.data, len(seq_n),
+            res.ctypes.data, ctypes.byref(exact),
+        )
+        if status != NEED_ROOM:
+            break
+        first += int(np.argmax(res[first:, R_STATUS] == NEED_ROOM))
+        cap = pos.value + int(res[first, R_LEN]) + int(est[first + 1 :].sum())
+    del out[pos.value :]
+    if status == TABLE:
+        raise ValueError("frame group assembly: a table names a block or lane out of range")
+    return res, exact.value
 
 
 HASH_LOG = 16

@@ -17,8 +17,10 @@ Pipeline:
    copied into pinned host buffers behind a CUDA event per group.
 4. Groups are finished in order as their events fire: unpack, wide
    retry of packed-range-overflow lanes (the sequences kernel in wide
-   mode), then assembly — the C executor, XXH64 checks, and the host
-   oracle for any frame the prepass flagged or whose lanes failed.
+   mode), then assembly — one ``csrc/host.c`` call a group that writes
+   its frames onto the output (executor, XXH64 and content-size checks),
+   and the host oracle, spliced in at its place, for any frame the
+   prepass flagged, whose lanes failed or whose checks failed.
 5. With ``device_execute=True`` (the device LZ77 route) assembly runs
    the LZ77 sequences on the card instead of the C executor: the copy
    programs of a group's frames (``kernels/lz77_device.py``) go up in one
@@ -72,6 +74,7 @@ and ``_land`` (wait, unpack, wide retry).
 
 from __future__ import annotations
 
+import ctypes
 import logging
 import time
 from dataclasses import dataclass, field
@@ -82,14 +85,14 @@ import torch
 
 from .. import native
 from ..format.block import BlockType
-from ..format.block_table import BatchPlan, FramePlan, build_batch_plan, input_words
+from ..format.block_table import MAX_BLOCK_SIZE, BatchPlan, FramePlan, build_batch_plan, input_words
 from ..format.frame import MAX_WINDOW_SIZE, SkippableFrame, parse_frame
+from ..format.literals import LiteralsType
 from ..kernels import literals as lit_kernel
 from ..kernels import lz77 as lz77_kernel
 from ..kernels import lz77_device
 from ..kernels import sequences as seq_kernel
 from ..observability import span
-from ..ops.sequence_codes import INITIAL_REPEAT_OFFSETS
 from ..utils.bits import ForwardByteCursor
 from ..utils.errors import ChecksumMismatch, ImpossibleValue, ZstdError
 from ..utils.xxh64 import xxh64
@@ -105,8 +108,8 @@ GROUP_BYTES = 1 << 20  # compressed bytes per pipelined frame group
 # plan); the host's lane columns, uploads, launches and queued copies
 # back; the wait on the card; the lanes' unpacking; the wide retry;
 # assembly; execute, the rebuilding of frames from their lanes' literals
-# and sequences (a frame at a time on the C executor, a group's program
-# on the device LZ77 route), which lies inside
+# and sequences (a group's ``zt_assemble_group`` call and its tables, or
+# a group's program on the device LZ77 route), which lies inside
 # assembly; and the output's copy to ``bytes``, taken after ``total``.
 # ``kernels`` is the call less prepass and assembly: words, launch, wait,
 # unpack and retry lie inside it.
@@ -182,6 +185,10 @@ class EngineStats:
     # falls back to the oracle adds to neither.
     multiblock_frames: int = 0
     far_match_bytes: int = 0
+    # Sequences that the host executor ran on its bounds-exact path (within
+    # 32 bytes of the end of their literals or of the output), summed once
+    # a frame group; the rest copied in strides.
+    exact_tail_sequences: int = 0
     # Seconds of the last call: each of STEPS, prepass, kernels and total
     # (and measure_phases' four phases).
     wall_s: dict = field(default_factory=dict)
@@ -191,7 +198,7 @@ class EngineStats:
     # alone; the counters of device work keep counting the failed attempt.
     PASS_COUNTERS: ClassVar[tuple] = (
         "frames", "blocks", "fallback_frames", "lit_lanes", "seq_lanes", "multiblock_frames",
-        "far_match_bytes",
+        "far_match_bytes", "exact_tail_sequences",
     )
     PASS_STEPS: ClassVar[tuple] = ("parse", "plan", "assembly", "execute")
 
@@ -214,6 +221,7 @@ class EngineStats:
             "fetch_bytes": self.fetch_bytes,
             "multiblock_frames": self.multiblock_frames,
             "far_match_bytes": self.far_match_bytes,
+            "exact_tail_sequences": self.exact_tail_sequences,
             "wall_s": dict(self.wall_s),
         }
 
@@ -582,47 +590,6 @@ class DeviceEngine:
 
     # -- assembly -------------------------------------------------------------
 
-    def _assemble_frame(self, fp: FramePlan, lit_outs, seq_outs) -> tuple[memoryview, int]:
-        """Assemble one frame's output: exact-size preallocation and the
-        C executor.  Returns the output and the bytes its matches copied
-        from earlier blocks of the frame."""
-        total = 0
-        for bp in fp.blocks:
-            if bp.kind == BlockType.RAW:
-                total += len(bp.raw)
-            elif bp.kind == BlockType.RLE:
-                total += bp.rle_repeat
-            else:
-                total += bp.lit_regen
-                if bp.seq_lane >= 0:
-                    total += int(seq_outs[bp.seq_lane][2].sum())
-
-        out = np.empty(total, dtype=np.uint8)
-        out_len = far = 0
-        rep = np.asarray(INITIAL_REPEAT_OFFSETS, dtype=np.uint64)
-        for bp in fp.blocks:
-            if bp.kind == BlockType.RAW:
-                n = len(bp.raw)
-                out[out_len : out_len + n] = np.frombuffer(bp.raw, dtype=np.uint8)
-                out_len += n
-                continue
-            if bp.kind == BlockType.RLE:
-                out[out_len : out_len + bp.rle_repeat] = bp.rle_byte
-                out_len += bp.rle_repeat
-                continue
-            literals = lz77_device.block_literals(bp, lit_outs)
-            if bp.seq_lane < 0:
-                out[out_len : out_len + literals.size] = literals
-                out_len += literals.size
-                continue
-            ll, ofv, ml = seq_outs[bp.seq_lane]
-            try:
-                out_len, block_far = native.execute_sequences(out, out_len, literals, ll, ofv, ml, rep)
-            except ValueError as e:
-                raise ImpossibleValue(str(e)) from None
-            far += block_far
-        return memoryview(out)[:out_len], far
-
     def _device_frames(self, plan, lit_outs, lit_ok, seq_outs, seq_ok) -> dict:
         """The device LZ77 route over one plan: the copy program of every
         frame that does not fall back, one upload, ONE lz77 launch, one
@@ -648,14 +615,63 @@ class DeviceEngine:
         self, plan, lit_outs, lit_ok, seq_outs, seq_ok, *,
         out: bytearray, verify_checksum: bool, include_skippable: bool,
     ) -> None:
-        """Assemble one plan's frames (in order) onto ``out``."""
+        """Assemble one plan's frames (in order) onto ``out``.  On the host
+        route one ``csrc/host.c`` call (``native.assemble_group``) writes
+        every frame that runs straight onto ``out``; only when a frame falls
+        back or fails, or a skippable frame's payload goes in, are the
+        frames spliced again one by one (``_splice_frames``)."""
         stats = self.stats
         stats.lit_lanes += plan.n_lit_lanes
         stats.seq_lanes += plan.n_seq_lanes
-        dev_out = None
         if self.device_execute:
             with span(stats, "execute"):
                 dev_out = self._device_frames(plan, lit_outs, lit_ok, seq_outs, seq_ok)
+
+            def device_frame(i, fp):
+                if not _frame_lanes_ok(fp, lit_ok, seq_ok):
+                    return None
+                if isinstance(dev_out[i], ZstdError):
+                    raise dev_out[i]
+                frame_out, far = dev_out[i]
+                _check_frame(fp, frame_out, verify_checksum)
+                return frame_out, far
+
+            self._splice_frames(plan, device_frame, out, verify_checksum, include_skippable)
+            return
+        base = len(out)
+        with span(stats, "execute"):
+            t = group_tables(plan, lit_outs, seq_outs, verify_checksum)
+            res, exact = native.assemble_group(
+                out, t.frames, t.blocks, t.lit_ptr, t.lit_len, lit_ok, t.seq_ptr, t.seq_n, seq_ok
+            )
+        stats.exact_tail_sequences += exact
+        n_ok = int(np.count_nonzero(res[:, native.R_STATUS] == native.FRAME_OK))
+        if n_ok == len(plan.frames) - t.skippable and not (include_skippable and t.skippable):
+            stats.frames += len(plan.frames)
+            stats.blocks += t.n_blocks
+            stats.multiblock_frames += t.multiblock
+            stats.far_match_bytes += int(res[:, native.R_FAR].sum())
+            return
+        region = memoryview(bytes(out[base:]))
+        del out[base:]
+
+        def host_frame(i, fp):
+            status, start, n, far, computed = res[i].tolist()
+            if status == native.LANES:
+                return None
+            if status != native.FRAME_OK:
+                raise _frame_error(fp, status, n, computed)
+            return region[start - base : start - base + n], far
+
+        self._splice_frames(plan, host_frame, out, verify_checksum, include_skippable)
+
+    def _splice_frames(self, plan, frame, out: bytearray, verify_checksum: bool, include_skippable: bool) -> None:
+        """Append one plan's frames to ``out`` in order: a skippable
+        frame's payload (``include_skippable``), ``frame(i, fp)``'s output
+        and far-match bytes, or the oracle's decode of a frame that the
+        prepass flagged, whose lanes failed (``frame`` returns None) or
+        whose assembly raised a ``ZstdError`` (its reason recorded)."""
+        stats = self.stats
         for i, fp in enumerate(plan.frames):
             stats.frames += 1
             if isinstance(fp.frame, SkippableFrame):
@@ -663,40 +679,22 @@ class DeviceEngine:
                     out += fp.frame.payload
                 continue
             stats.blocks += len(fp.blocks)
-            if fp.fallback or not _frame_lanes_ok(fp, lit_ok, seq_ok):
-                stats.fallback_frames += 1
-                out += decode_frame(fp.frame, verify_checksum=verify_checksum)
-                continue
             try:
-                # One span a frame, each output appended while it is hot in
-                # cache: holding a group's outputs for one span cost more.
-                if dev_out is None:
-                    with span(stats, "execute"):
-                        frame_out, far = self._assemble_frame(fp, lit_outs, seq_outs)
-                else:
-                    if isinstance(dev_out[i], ZstdError):
-                        raise dev_out[i]
-                    frame_out, far = dev_out[i]
-                header = fp.frame.header
-                if header.checksum_flag and verify_checksum:
-                    computed = xxh64(frame_out) & 0xFFFFFFFF
-                    if computed != fp.frame.checksum:
-                        raise ChecksumMismatch(computed, fp.frame.checksum)
-                if header.content_size is not None and len(frame_out) != header.content_size:
-                    raise ImpossibleValue(
-                        f"frame decoded {len(frame_out)}, header says {header.content_size}"
-                    )
+                got = None if fp.fallback else frame(i, fp)
             except ZstdError as e:
                 # Corrupt data or a failed check: re-decode the frame with
                 # the oracle, which re-raises genuine corruption as the
                 # same typed error the host path gives.
                 _log.warning("frame assembly failed, oracle fallback: %r", e)
-                stats.fallback_frames += 1
                 stats.fallback_reasons.append(f"assembly: {e!r}")
-                frame_out = decode_frame(fp.frame, verify_checksum=verify_checksum)
-            else:
-                stats.multiblock_frames += len(fp.blocks) > 1
-                stats.far_match_bytes += far
+                got = None
+            if got is None:
+                stats.fallback_frames += 1
+                out += decode_frame(fp.frame, verify_checksum=verify_checksum)
+                continue
+            frame_out, far = got
+            stats.multiblock_frames += len(fp.blocks) > 1
+            stats.far_match_bytes += far
             out += frame_out
 
     # -- entry points ---------------------------------------------------------
@@ -903,6 +901,155 @@ def group_program(plan, lit_outs, lit_ok, seq_outs, seq_ok):
         except ZstdError as e:
             errors[i] = e
     return (lz77_device.pack_programs(progs) if progs else None), idx, errors
+
+
+@dataclass
+class GroupTables:
+    """A frame group's tables for ``native.assemble_group``
+    (``group_tables``), and what its fast path counts: the blocks of its
+    frames, its frames of more than one block that run, its skippable
+    frames.  ``keep`` holds the arrays copied for the call."""
+
+    frames: np.ndarray
+    blocks: np.ndarray
+    lit_ptr: np.ndarray
+    lit_len: np.ndarray
+    seq_ptr: np.ndarray
+    seq_n: np.ndarray
+    keep: list
+    n_blocks: int
+    multiblock: int
+    skippable: int
+
+
+_from_buffer = ctypes.c_char.from_buffer
+_addressof = ctypes.addressof
+
+
+def _addresses(arrays, dtype, keep: list) -> list[int]:
+    """The address of each array's first element (0 for None), with the
+    array C-contiguous and of ``dtype``: in place where it is, else a copy
+    held in ``keep``.  ``from_buffer`` takes a third of
+    ``__array_interface__``'s time; it refuses read-only, strided and
+    empty arrays, which take the copy's path."""
+    out = []
+    for a in arrays:
+        if a is None:
+            out.append(0)
+            continue
+        if a.dtype == dtype:
+            try:
+                out.append(_addressof(_from_buffer(a)))
+                continue
+            except (TypeError, ValueError):
+                pass
+        a = np.ascontiguousarray(a, dtype=dtype)
+        keep.append(a)
+        out.append(a.__array_interface__["data"][0])
+    return out
+
+
+_U8, _I32, _U32 = np.dtype(np.uint8), np.dtype(np.int32), np.dtype(np.uint32)
+_NO_LANES = (-1, -1, -1, -1)
+_NO_LENGTH = (1 << 63) - 1  # a frame length no buffer reaches
+
+
+def group_tables(plan, lit_outs, seq_outs, verify_checksum: bool) -> GroupTables:
+    """The frame and block tables of a plan's frames (``native.FRAME_COLS``,
+    ``native.BLOCK_COLS``) and its lanes' outputs by address, as
+    ``zt_assemble_group`` reads them.  A skippable frame or one the prepass
+    flagged has no block rows and the skip flag.  A frame's estimate is
+    a bound, raw and RLE blocks' sizes and ``MAX_BLOCK_SIZE`` a compressed
+    block, or its content size where that is smaller: a header's size is
+    not trusted with an allocation (only a single-segment frame's is held
+    to the window), and a frame that outgrows the bound gets room as it
+    runs.  A content size past int64 is held as one no frame decodes to,
+    so that the frame fails its size check.  A literal lane the plan gives
+    no symbols reads as empty, as ``block_literals`` leaves it out."""
+    keep: list = []
+    frames, rows = [], []
+    n_blocks = multiblock = skippable = 0
+    for fp in plan.frames:
+        frame = fp.frame
+        if isinstance(frame, SkippableFrame):
+            skippable += 1
+            frames.append((len(rows), 0, native.FLAG_SKIP, -1, 0, 0))
+            continue
+        n_blocks += len(fp.blocks)
+        if fp.fallback:
+            frames.append((len(rows), 0, native.FLAG_SKIP, -1, 0, 0))
+            continue
+        b0, est = len(rows), 0
+        for bp in fp.blocks:
+            kind = bp.kind
+            if kind == BlockType.RAW:
+                n = len(bp.raw)
+                (ptr,) = _addresses([np.frombuffer(bp.raw, np.uint8)], _U8, keep)
+                rows.append((kind, ptr, n, 0, 0, *_NO_LANES, -1))
+                est += n
+            elif kind == BlockType.RLE:
+                rows.append((kind, 0, bp.rle_repeat, bp.rle_byte, 0, *_NO_LANES, -1))
+                est += bp.rle_repeat
+            else:
+                lk = bp.lit_kind
+                if lk == LiteralsType.RAW:
+                    (ptr,), n = _addresses([np.frombuffer(bp.lit_raw, np.uint8)], _U8, keep), len(bp.lit_raw)
+                else:
+                    ptr, n = 0, bp.lit_regen
+                lanes = [r.lane for r in bp.lit_streams]
+                lanes += _NO_LANES[len(lanes) :]
+                rows.append((kind, ptr, n, bp.lit_rle_byte, lk, *lanes, bp.seq_lane))
+                est += MAX_BLOCK_SIZE
+        multiblock += len(fp.blocks) > 1
+        header = frame.header
+        check = header.checksum_flag and verify_checksum
+        size = header.content_size
+        frames.append((
+            b0, len(rows) - b0, native.FLAG_CHECKSUM if check else 0,
+            -1 if size is None else min(size, _NO_LENGTH), frame.checksum if check else 0,
+            est if size is None else min(size, est),
+        ))
+    lit_len = np.array([0 if a is None else a.size for a in lit_outs], dtype=np.int64)
+    lit_len[plan.lit_regen[: len(lit_len)] == 0] = 0
+    seqs = [(None, None, None) if t is None else t for t in seq_outs]
+    seq_ptr = np.array(
+        [_addresses([t[k] for t in seqs], dt, keep) for k, dt in enumerate((_I32, _U32, _I32))],
+        dtype=np.int64,
+    ).reshape(3, -1)
+    seq_n = np.array([0 if t[0] is None else min(len(t[0]), len(t[1]), len(t[2])) for t in seqs], dtype=np.int64)
+    i64 = lambda rows, cols: np.array(rows, dtype=np.int64).reshape(-1, cols)  # noqa: E731
+    return GroupTables(
+        frames=i64(frames, native.FRAME_COLS), blocks=i64(rows, native.BLOCK_COLS),
+        lit_ptr=np.array(_addresses(lit_outs, _U8, keep), dtype=np.int64), lit_len=lit_len,
+        seq_ptr=np.ascontiguousarray(seq_ptr.T), seq_n=seq_n, keep=keep,
+        n_blocks=n_blocks, multiblock=multiblock, skippable=skippable,
+    )
+
+
+def _check_frame(fp: FramePlan, frame_out, verify_checksum: bool) -> None:
+    """A frame's checks after its sequences ran: XXH64 (under
+    ``verify_checksum``), then the header's content size."""
+    header = fp.frame.header
+    if header.checksum_flag and verify_checksum:
+        computed = xxh64(frame_out) & 0xFFFFFFFF
+        if computed != fp.frame.checksum:
+            raise ChecksumMismatch(computed, fp.frame.checksum)
+    if header.content_size is not None and len(frame_out) != header.content_size:
+        raise ImpossibleValue(f"frame decoded {len(frame_out)}, header says {header.content_size}")
+
+
+def _frame_error(fp: FramePlan, status: int, n: int, computed: int) -> ZstdError:
+    """The error a frame's ``zt_assemble_group`` status stands for, as
+    ``block_literals``, ``native.execute_sequences`` and ``_check_frame``
+    raise it: ``n`` is the frame's decoded length, ``computed`` its
+    checksum."""
+    if status == native.LITERALS_SIZE:
+        return ImpossibleValue("literal stream size mismatch")
+    if status == native.CHECKSUM:
+        return ChecksumMismatch(computed, fp.frame.checksum)
+    if status == native.CONTENT_SIZE:
+        return ImpossibleValue(f"frame decoded {n}, header says {fp.frame.header.content_size}")
+    return ImpossibleValue(native.execute_status(status))
 
 
 def _wait(events) -> None:
